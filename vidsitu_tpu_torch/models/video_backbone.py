@@ -1,0 +1,323 @@
+"""3D-CNN video backbones in PyTorch: ResNet3D (c2d / i3d / slow) and
+SlowFast.
+
+Port of vidsitu_tpu/models/video_backbone.py, which re-implements the
+SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
+
+  * Inference only: BatchNorm uses its running statistics (call ``eval()``).
+    The JAX package's ``remat`` / ``remat_stages`` / ``bn_f32_stats`` knobs
+    concern training and are not carried over yet.
+  * Public tensors keep the JAX layout, (B, T, H, W, C) frames, and the
+    non-local token order (t, h, w). Inside, activations are (B, C, T, H, W)
+    tensors; the entry points hand them over as channels-last views, so a
+    model moved with ``memory_format=torch.channels_last_3d`` runs NDHWC
+    end to end.
+  * Submodule names follow the flax tree (``s3.block_1.a.conv``,
+    ``s3.nl_1.theta``, ...), so flax variables map onto ``state_dict()`` by
+    a rename and a transpose (convert/from_flax.py).
+  * The JAX package's packed stem conv and packed stem epilogue fill TPU
+    lanes; here the stem is a plain Conv3d on the same canonical weight.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..ops.attention import nonlocal_attention
+
+# Per-stage temporal-kernel PATTERNS (PySlowFast _TEMPORAL_KERNEL_BASIS):
+# stem + res2..res5; a stage's pattern is tiled across its blocks.
+TEMPORAL_KERNELS = {
+    "c2d": {"fast": [(1,), (1,), (1,), (1,), (1,)]},
+    "i3d": {"fast": [(5,), (3,), (3, 1), (3, 1), (1, 3)]},
+    "slow": {"fast": [(1,), (1,), (1,), (3,), (3,)]},
+    "slowfast": {
+        "slow": [(1,), (1,), (1,), (3,), (3,)],
+        "fast": [(5,), (3,), (3,), (3,), (3,)],
+    },
+}
+
+# temporal pool after s2 (SlowFast _POOL1): i3d/c2d pool T by 2
+TEMPORAL_POOL = {"c2d": 2, "i3d": 2, "slow": 1, "slowfast": 1}
+
+BN_EPS = 1e-5  # flax BatchNorm's epsilon in the JAX package
+
+_STAGE_OUT = [256, 512, 1024, 2048]
+_STAGE_INNER = [64, 128, 256, 512]
+
+
+@dataclass(frozen=True)
+class VideoCfg:
+    arch: str = "slowfast"
+    depth_blocks: Tuple[int, ...] = (3, 4, 6, 3)
+    width: int = 64
+    alpha: int = 4
+    beta_inv: int = 8
+    fusion_ratio: int = 2
+    fusion_kernel: int = 7
+    spatial_strides: Tuple[int, ...] = (1, 2, 2, 2)
+    nl_location: Tuple[Tuple[Tuple[int, ...], ...], ...] = ((), (), (), ())
+    nl_instantiation: str = "softmax"
+    mean: tuple = (0.45, 0.45, 0.45)
+    std: tuple = (0.225, 0.225, 0.225)
+    # frames arriving on device are already channel-reversed host-side
+    # (pack_pathways); the reference normalizes BEFORE reversing
+    # (dat_loader.py:478-484), so normalizing reversed uint8 frames must
+    # use reversed mean/std
+    reverse_input_channel: bool = False
+    dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def from_cfg(cls, vid_mdl, dtype: torch.dtype = torch.float32):
+        # 26 is a 1-block-per-stage bottleneck variant for fast tests
+        depth_map = {26: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+        return cls(
+            arch=vid_mdl.arch,
+            depth_blocks=depth_map[vid_mdl.resnet.depth],
+            width=vid_mdl.resnet.width_per_group,
+            alpha=vid_mdl.slowfast.alpha,
+            beta_inv=vid_mdl.slowfast.beta_inv,
+            fusion_ratio=vid_mdl.slowfast.fusion_conv_channel_ratio,
+            fusion_kernel=vid_mdl.slowfast.fusion_kernel_sz,
+            spatial_strides=tuple(s[0] for s in vid_mdl.resnet.spatial_strides),
+            nl_location=tuple(
+                tuple(tuple(p) for p in stage_loc)
+                for stage_loc in vid_mdl.nl.location
+            ),
+            nl_instantiation=vid_mdl.nl.instantiation,
+            mean=tuple(vid_mdl.mean),
+            std=tuple(vid_mdl.std),
+            reverse_input_channel=bool(vid_mdl.reverse_input_channel),
+            dtype=dtype,
+        )
+
+
+class ConvBN(nn.Module):
+    """Conv3d (no bias, symmetric k//2 padding) + BatchNorm + optional ReLU."""
+
+    def __init__(self, dim_in: int, features: int, kernel: Tuple[int, int, int],
+                 strides: Tuple[int, int, int] = (1, 1, 1), relu: bool = True):
+        super().__init__()
+        self.conv = nn.Conv3d(dim_in, features, kernel, stride=strides,
+                              padding=tuple(k // 2 for k in kernel), bias=False)
+        self.bn = nn.BatchNorm3d(features, eps=BN_EPS)
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.relu else x
+
+
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, H, W) -> contiguous (B, T*H*W, C), tokens in (t, h, w)
+    order as the JAX package flattens (B, T, H, W, C); no copy for a
+    channels-last input."""
+    b, c = x.shape[:2]
+    return x.permute(0, 2, 3, 4, 1).reshape(b, -1, c).contiguous()
+
+
+class NonLocalBlock(nn.Module):
+    """Non-local block (dot_product or softmax instantiation) with (1,2,2)
+    max-pool subsampling on phi/g, as in the SlowFast package.
+
+    ``attention`` is the attention function, the device dispatcher by
+    default; a caller may set it to the kernel or to the plain version to
+    run one of them without dispatch."""
+
+    def __init__(self, dim: int, instantiation: str):
+        super().__init__()
+        inner = dim // 2
+        # biased 1x1x1 convs, as in PySlowFast's Nonlocal
+        self.theta = nn.Conv3d(dim, inner, 1)
+        self.phi = nn.Conv3d(dim, inner, 1)
+        self.g = nn.Conv3d(dim, inner, 1)
+        self.out = nn.Conv3d(inner, dim, 1)
+        self.bn = nn.BatchNorm3d(dim, eps=BN_EPS)
+        self.pool = nn.MaxPool3d((1, 2, 2), stride=(1, 2, 2))
+        self.kind = instantiation
+        self.scale = float(inner) ** -0.5
+        self.attention = nonlocal_attention
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, ch, t, h, w = x.shape
+        inner = ch // 2
+        pooled = self.pool(x)
+        q = _tokens(self.theta(x))
+        k = _tokens(self.phi(pooled))
+        v = _tokens(self.g(pooled))
+        out = self.attention(q, k, v, self.kind, self.scale).to(x.dtype)
+        # (B, THW, inner) -> (B, inner, T, H, W), a channels-last view
+        out = out.reshape(b, t, h, w, inner).permute(0, 4, 1, 2, 3)
+        return x + self.bn(self.out(out))
+
+
+class Bottleneck(nn.Module):
+    """1x1x1(temp) -> 1x3x3(stride) -> 1x1x1 with residual (projected when
+    the width or the stride changes)."""
+
+    def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
+                 temp_kernel: int, spatial_stride: int, cfg: VideoCfg):
+        super().__init__()
+        s = spatial_stride
+        self.a = ConvBN(dim_in, dim_inner, (temp_kernel, 1, 1))
+        self.b = ConvBN(dim_inner, dim_inner, (1, 3, 3), strides=(1, s, s))
+        self.c = ConvBN(dim_inner, dim_out, (1, 1, 1), relu=False)
+        self.proj = None
+        if dim_in != dim_out or s != 1:
+            self.proj = ConvBN(dim_in, dim_out, (1, 1, 1), strides=(1, s, s),
+                               relu=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.proj is None else self.proj(x)
+        return F.relu(residual + self.c(self.b(self.a(x))))
+
+
+class ResStage(nn.Sequential):
+    """``block_{i}`` bottlenecks, each followed by ``nl_{i}`` when i is in
+    ``nl_blocks`` (PySlowFast names non-local modules by block index)."""
+
+    def __init__(self, dim_in: int, n_blocks: int, dim_out: int, dim_inner: int,
+                 temp_kernels: Sequence[int], spatial_stride: int,
+                 nl_blocks: Sequence[int], cfg: VideoCfg):
+        mods = OrderedDict()
+        for i in range(n_blocks):
+            mods[f"block_{i}"] = Bottleneck(
+                dim_in if i == 0 else dim_out, dim_out, dim_inner,
+                temp_kernels[i % len(temp_kernels)],
+                spatial_stride if i == 0 else 1, cfg,
+            )
+            if i in nl_blocks:
+                mods[f"nl_{i}"] = NonLocalBlock(dim_out, cfg.nl_instantiation)
+        super().__init__(mods)
+
+
+class Stem(nn.Module):
+    """Stem conv + BN + relu + (1,3,3) s(1,2,2) max pool (pad (0,1,1))."""
+
+    def __init__(self, dim_in: int, width: int, temp_kernel: int):
+        super().__init__()
+        self.conv = ConvBN(dim_in, width, (temp_kernel, 7, 7), strides=(1, 2, 2))
+        self.pool = nn.MaxPool3d((1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pool(self.conv(x))
+
+
+class FuseFastToSlow(nn.Module):
+    """Lateral connection: time-strided conv on fast, concat to slow."""
+
+    def __init__(self, fast_channels: int, cfg: VideoCfg):
+        super().__init__()
+        self.conv_f2s = ConvBN(
+            fast_channels, fast_channels * cfg.fusion_ratio,
+            (cfg.fusion_kernel, 1, 1), strides=(cfg.alpha, 1, 1),
+        )
+
+    def forward(self, slow: torch.Tensor, fast: torch.Tensor):
+        return torch.cat([slow, self.conv_f2s(fast)], dim=1), fast
+
+
+def _nl_for(cfg: VideoCfg, stage: int, pathway: int) -> Tuple[int, ...]:
+    loc = cfg.nl_location
+    if stage < len(loc) and pathway < len(loc[stage]):
+        return tuple(loc[stage][pathway])
+    return ()
+
+
+class SlowFastBackbone(nn.Module):
+    """Dual-pathway backbone. forward mirrors
+    SlowFast_FeatModel.forward_features (mdl_sf_base.py:21-34); inputs and
+    outputs are (B, C, T, H, W)."""
+
+    def __init__(self, cfg: VideoCfg):
+        super().__init__()
+        c = cfg
+        w = c.width
+        wf = w // c.beta_inv
+        tk_s = TEMPORAL_KERNELS["slowfast"]["slow"]
+        tk_f = TEMPORAL_KERNELS["slowfast"]["fast"]
+        self.s1_slow = Stem(3, w, tk_s[0][0])
+        self.s1_fast = Stem(3, wf, tk_f[0][0])
+        self.s1_fuse = FuseFastToSlow(wf, c)
+        slow_in, fast_in = w + wf * c.fusion_ratio, wf
+        for i in range(4):
+            out_f = _STAGE_OUT[i] // c.beta_inv
+            self.add_module(f"s{i + 2}_slow", ResStage(
+                slow_in, c.depth_blocks[i], _STAGE_OUT[i], _STAGE_INNER[i],
+                tk_s[i + 1], c.spatial_strides[i], _nl_for(c, i, 0), c))
+            self.add_module(f"s{i + 2}_fast", ResStage(
+                fast_in, c.depth_blocks[i], out_f,
+                _STAGE_INNER[i] // c.beta_inv, tk_f[i + 1],
+                c.spatial_strides[i], _nl_for(c, i, 1), c))
+            slow_in, fast_in = _STAGE_OUT[i], out_f
+            if i < 3:  # fuse after s2, s3, s4
+                self.add_module(f"s{i + 2}_fuse", FuseFastToSlow(out_f, c))
+                slow_in += out_f * c.fusion_ratio
+
+    def forward(self, slow: torch.Tensor, fast: torch.Tensor):
+        slow = self.s1_slow(slow)
+        fast = self.s1_fast(fast)
+        slow, fast = self.s1_fuse(slow, fast)
+        for i in range(4):
+            slow = self._modules[f"s{i + 2}_slow"](slow)
+            fast = self._modules[f"s{i + 2}_fast"](fast)
+            if i < 3:
+                slow, fast = self._modules[f"s{i + 2}_fuse"](slow, fast)
+        return slow, fast
+
+
+class ResNet3DBackbone(nn.Module):
+    """Single-pathway backbone (c2d / i3d / slow variants); (B, C, T, H, W)
+    in and out."""
+
+    def __init__(self, cfg: VideoCfg):
+        super().__init__()
+        c = cfg
+        tk = TEMPORAL_KERNELS[c.arch]["fast"]
+        self.s1 = Stem(3, c.width, tk[0][0])
+        dim_in = c.width
+        for i in range(4):
+            self.add_module(f"s{i + 2}", ResStage(
+                dim_in, c.depth_blocks[i], _STAGE_OUT[i], _STAGE_INNER[i],
+                tk[i + 1], c.spatial_strides[i], _nl_for(c, i, 0), c))
+            dim_in = _STAGE_OUT[i]
+        tpool = TEMPORAL_POOL[c.arch]
+        self.tpool = (nn.MaxPool3d((tpool, 1, 1), stride=(tpool, 1, 1))
+                      if tpool > 1 else nn.Identity())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.s2(self.s1(x))
+        x = self.tpool(x)
+        return self.s5(self.s4(self.s3(x)))
+
+
+def trimmed_head(feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-pathway global average pool + channel concat
+    (ResNetBasicHead_Trimmed, mdl_sf_base.py:65-113). (B,C,T,H,W)->(B,C)."""
+    return torch.cat([f.mean(dim=(2, 3, 4)) for f in feats], dim=-1)
+
+
+def backbone_out_dim(c: VideoCfg) -> int:
+    """Channel dim of trimmed_head's output for a VideoCfg (2304 for
+    slowfast-R50, 2048 single-pathway)."""
+    w = c.width * 32
+    if c.arch == "slowfast":
+        return w + w // c.beta_inv
+    return w
+
+
+def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast conv and linear weights to the compute dtype; BatchNorm
+    parameters and statistics stay float32, as flax computes BN in float32
+    and casts its output (cuDNN's BN takes bf16 input with float32
+    parameters)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv3d, nn.Linear)):
+            m.to(dtype)
+    return model

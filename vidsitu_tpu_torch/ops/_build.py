@@ -1,0 +1,86 @@
+"""Build and load the port's CUDA kernels (nvcc by hand + ctypes).
+
+The sources under ``vidsitu_tpu_torch/csrc/`` have a plain C interface, so
+``nvcc`` compiles each one in seconds into a shared library under
+``vidsitu_tpu_torch/_build/``, named by the hash of its source and flags: a
+changed source builds anew, an unchanged one is loaded from disk. Nothing is
+built at import time; the first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import uuid
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+        "of vidsitu_tpu_torch are built from source at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/{name}.cu`` unless its hashed library exists; returns
+    the library path. The compiler's resource report (``-Xptxas -v``) goes
+    to ``_build/{name}.log``."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{out.name}.{uuid.uuid4().hex[:8]}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) for {name}.cu:\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    return out
+
+
+@functools.cache
+def load_nonlocal_attn() -> ctypes.CDLL:
+    """The non-local attention library, built on first call."""
+    lib = ctypes.CDLL(str(build("nonlocal_attn")))
+    fn = lib.nl_attn_fwd
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
