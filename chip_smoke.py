@@ -19,7 +19,31 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 4. kernel path == plain path: one batch of those clips through the model
    once with the kernel and once with the plain attention, features within
    2e-2 of the feature scale (bf16), and both timed;
-5. the default configuration (SlowFast R50 8x8) forward on 8 clips.
+5. the default configuration (SlowFast R50 8x8) forward on 8 clips;
+6. build: the beam-cache row-gather kernel (built with phase 1's, both
+   nvcc processes started together);
+7. kernel vs plain: the row gather against ``index_select`` on the SRL
+   decode's cache at beam 5 (400 rows; per layer 2 self leaves of
+   8 x L x 128 for L = 65, 129, 201 and 2 cross leaves of 8 x 1 x 128;
+   3 layers = 12 leaves per launch), bf16 and float32, bit-identical; then
+   the 12-leaf reorder at each L timed against the plain version, in
+   turns, with calls queued back to back (device time) and one call at a
+   time (host time of the wrapper included);
+8. SRL main path: ``python -m vidsitu_tpu_torch.main`` in process,
+   ``sfpret_txe_txd_vbarg`` at full width (3+3 layers, d 1024, 8 heads),
+   bf16, seeded weights, beam 5 without ancestry, on the features phase 3
+   wrote (8 real segments padded to the eval batch of 16 = 400 beam rows):
+   one pkl entry per segment with 5 events whose text starts with the
+   forced verb, finite metrics, and exactly one kernel launch per decode
+   step;
+9. routes agree on that batch: the reorder route with the kernel and with
+   the plain gather (identical tokens and scores, timed in turns), the
+   ancestry route against the reorder route in float32 (tokens equal on
+   >= 95 % of events, see ROUTE_AGREEMENT), greedy once; each route's
+   time per batch; then a ``torch.profiler`` trace of one more decode of
+   the main path's batch (phase 8's profile);
+10. the generator alone at the real vocabulary size (GPT-2's 50,257 tokens
+   plus the 23 role/separator tokens and pad), beam 5, both routes, timed.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
 before the last line, and as the last line
@@ -27,10 +51,13 @@ before the last line, and as the last line
 """
 
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +67,19 @@ REPO = Path(__file__).resolve().parent
 S3, S4, RAGGED = (3136, 784, 256), (784, 196, 512), (200, 200, 128)
 ATOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 FEATURE_RTOL = 2e-2  # kernel vs plain path, relative to max |feature|
+KERNELS = ("nonlocal_attn", "beam_gather")  # built together, phases 1 and 6
+# SRL decode at beam 5: 16 segments x 5 events x 5 beams, 3 decoder layers
+BEAM, EVENTS, HEADS, HEAD_DIM, LAYERS = 5, 80, 8, 128, 3
+SELF_LENS = (65, 129, 201)  # the segmented cache: 64, 128, then 200 + 1
+REAL_VOCAB = 50257 + 1 + 2 * 11 + 1  # GPT-2 + <EV_SEP> + <ArgX>/</ArgX> + pad
+# ancestry vs reorder in float32, share of events with equal top-beam tokens.
+# The routes sum in other orders (cuBLAS takes a gemv for the reorder
+# route's one query per row, a gemm for ancestry's five), and with seeded
+# weights the 427-way output distributions are flat, so a near-tie among
+# the 10 candidates flips now and then: 396 of 400 events agreed over 5
+# batches on the H100. A broken route disagrees on most events.
+ROUTE_AGREEMENT = 0.95
+QUEUED = 10  # calls queued between two CUDA events: device time per call
 
 
 def log(*a):
@@ -77,17 +117,27 @@ def seeded_qkv(rng, b, sq, sk, d, dtype, dev):
 
 
 def phase_build():
+    """Phases 1 and 6: every kernel from the checkout's source, one nvcc
+    per source, all started together."""
     from vidsitu_tpu_torch.ops import _build
 
-    lib = _build.library_path("nonlocal_attn")
-    lib.unlink(missing_ok=True)  # build from the checkout's source
-    t0 = time.perf_counter()
+    def timed(name):
+        t0 = time.perf_counter()
+        _build.build(name)
+        return time.perf_counter() - t0
+
+    for name in KERNELS:
+        _build.library_path(name).unlink(missing_ok=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        secs = dict(zip(KERNELS, pool.map(timed, KERNELS)))
     _build.load_nonlocal_attn()
-    log(f"[1 build] nonlocal_attn.cu -> {lib.name} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in (_build.BUILD_DIR / "nonlocal_attn.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("    ptxas:", line.strip())
+    _build.load_beam_gather()
+    for phase, name in zip((1, 6), KERNELS):
+        log(f"[{phase} build] {name}.cu -> {_build.library_path(name).name} "
+            f"in {secs[name]:.2f} s")
+        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("    ptxas:", line.strip())
 
 
 def phase_kernel(dev):
@@ -252,6 +302,307 @@ def phase_default_cfg(paths, root, dev):
     assert ok
 
 
+def beam_rows(gen, dev):
+    """Source rows of one beam-5 reorder: each event's 5 new beams drawn
+    from its own 5 old ones (repeated parents included)."""
+    beam_idx = torch.randint(0, BEAM, (EVENTS, BEAM), generator=gen,
+                             device=dev)
+    return (torch.arange(EVENTS, device=dev)[:, None] * BEAM
+            + beam_idx).reshape(-1)
+
+
+def cache_leaves(gen, length, dtype, dev):
+    """The reorder-mode cache's 12 float leaves, in cache order: per layer
+    self K/V (rows, H, L, Dh) and cross K/V (rows, H, 1, Dh)."""
+    rows = EVENTS * BEAM
+    shapes = [(rows, HEADS, n, HEAD_DIM) for n in (length, length, 1, 1)]
+    return [torch.randn(sh, generator=gen, device=dev).to(dtype)
+            for _ in range(LAYERS) for sh in shapes]
+
+
+def phase_gather_kernel(dev):
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for length in SELF_LENS:
+            leaves = cache_leaves(gen, length, dtype, dev)
+            idx = beam_rows(gen, dev)
+            out = B.beam_gather_rows(leaves, idx)
+            ref = B.beam_gather_rows_reference(leaves, idx)
+            torch.cuda.synchronize()
+            ok = all(torch.equal(o, r) for o, r in zip(out, ref))
+            err = max((o.float() - r.float()).abs().max().item()
+                      for o, r in zip(out, ref))
+            log(f"[7 gather] 12 leaves, 400 rows, L={length} "
+                f"{str(dtype)[6:]}: bit-identical={ok} max_abs_err={err:g} "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok, "row-gather kernel disagrees with index_select"
+            worst = max(worst, err)
+            del leaves, out, ref
+    times = {}
+    for length in SELF_LENS:
+        leaves = cache_leaves(gen, length, torch.bfloat16, dev)
+        idx = beam_rows(gen, dev)
+
+        def queued(fn, calls):
+            def run():
+                for _ in range(calls):
+                    fn(leaves, idx)
+            return run
+
+        moved = 2 * sum(x.numel() * x.element_size() for x in leaves)
+        for calls in (QUEUED, 1):
+            ms, plain_ms = interleaved_medians(
+                queued(B.beam_gather_rows, calls),
+                queued(B.beam_gather_rows_reference, calls), 10)
+            ms, plain_ms = ms / calls, plain_ms / calls
+            times[(length, calls)] = (ms, plain_ms)
+            what = ("device time, calls queued" if calls > 1
+                    else "one call per event pair, host time included")
+            log(f"[7 gather] time 12 leaves L={length} bf16 ({moved / 2e9:.3f}"
+                f" GB each way), {what}: kernel {ms:.4f} ms "
+                f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms "
+                f"({moved / plain_ms / 1e6:.1f} GB/s)")
+        del leaves
+    return worst, times[(SELF_LENS[-1], QUEUED)]
+
+
+def srl_args(paths, root, feats_dir, *extra):
+    return ["chip_smoke_srl", "--task_type=vb_arg",
+            "--mdl.mdl_name=sfpret_txe_txd_vbarg", "--train.dtype=bfloat16",
+            f"--misc.tmp_path={root / 'tmp'}",
+            *[f"--{k}={v}" for k, v in paths.items()],
+            f"--ds.vsitu.vsit_frm_feats_dir={feats_dir}",
+            "--device=cuda", "--allow_random_weights=True", *extra]
+
+
+def device_batch(cfg, dev):
+    """The valid split's first eval batch, padded like the evaluator's."""
+    from vidsitu_tpu.data import get_data
+    from vidsitu_tpu.evaluation.evaluators import pad_batch_to
+
+    batch = pad_batch_to(next(iter(get_data(cfg).valid_dl)),
+                         int(cfg.train.bsv))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in batch.items()}
+
+
+def phase_srl_main(paths, root, feats_dir):
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    B.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = port_main.main(srl_args(paths, root, feats_dir, "--only_val=True",
+                                  "--gen.beam_size=5",
+                                  "--tpu.ancestry_beam=False"))
+    wall = time.perf_counter() - t0
+    launches = B.LAUNCHES
+    ev, cfg = res["evaluator"], res["cfg"]
+    steps = ev.generate_fn.steps
+    _, acc = res["results"]["valid"]
+    with open(res["pred_dir"] / "valid_0.pkl", "rb") as f:
+        preds = pickle.load(f)
+    log(f"[8 srl] entries={len(preds)} batches={len(ev.batch_seconds)} "
+        f"steps={steps} gather_launches={launches} metrics={acc} "
+        f"wall={wall:.2f} s")
+    assert len(preds) == 8 and sorted(p["ann_idx"] for p in preds) == list(
+        range(8)), "one pkl entry per real segment"
+    assert all(set(p["vb_output"]) == {f"Ev{i}" for i in range(1, 6)}
+               for p in preds), "5 events per entry"
+    assert set(acc) == set(ev.met_keys) and all(
+        np.isfinite(v) for v in acc.values()), acc
+    assert launches == sum(steps) > 0, (
+        f"row-gather launches {launches} != decode steps {sum(steps)}")
+    # the forced verb: every event's text starts with its verb id
+    batch = device_batch(cfg, "cpu")
+    wvoc = ev.comm.gpt2_hf_tok
+    verbs = batch["seq_out_by_ev"][:, :, 0, 0].numpy()
+    by_idx = {int(i): row for i, row in zip(batch["vseg_idx"], verbs)}
+    for p in preds:
+        for ev_ix in range(5):
+            want = wvoc.decode([int(by_idx[p["ann_idx"]][ev_ix])])
+            got = p["vb_output"][f"Ev{ev_ix + 1}"].get("vb_id", "")
+            assert got.startswith(want), (p["ann_idx"], ev_ix, got, want)
+    sec = ev.batch_seconds[0]
+    log(f"[8 srl] batch of 16 segments (80 events, 400 beam rows), first "
+        f"call: {sec:.3f} s, {sec * 1e3 / steps[0]:.3f} ms/step over "
+        f"{steps[0]} steps, {80 / sec:.1f} events/s")
+    return launches, ev.generate_fn, cfg
+
+
+def phase_srl_profile(gen, batch):
+    """One more decode of the main path's batch under torch.profiler: device
+    time by kernel, and the busy share against the same decode unprofiled
+    (the profiler slows the host several times over)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, wall = timed_search(gen, batch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, prof_wall = timed_search(gen, batch)
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    per_step = sum(e.count for e in rows) / out.steps
+    log(f"[8 profile] reorder route, {out.steps} steps: device kernels "
+        f"{dev_ms:.1f} ms = {dev_ms / out.steps:.3f} ms/step, {per_step:.1f} "
+        f"kernels/step; unprofiled "
+        f"wall {wall * 1e3:.1f} ms (device busy {100 * dev_ms / wall / 1e3:.1f}"
+        f" %); profiled wall {prof_wall * 1e3:.1f} ms")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{100 * e.self_device_time_total / 1e3 / dev_ms:5.1f} % "
+            f"{e.count:6d}x  {e.key[:80]}")
+
+
+@contextmanager
+def plain_gather():
+    """Route beam search's cache reorder to the plain version (the A/B of
+    the kernel inside the decode)."""
+    from vidsitu_tpu_torch.gen import beam
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    saved = beam.gather_rows
+    beam.gather_rows = B.beam_gather_rows_reference
+    try:
+        yield
+    finally:
+        beam.gather_rows = saved
+
+
+def timed_search(gen, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gen.search(batch)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def generator_for(model, cfg, comm, beam_size=BEAM, ancestry=False):
+    """The entry point's generator over ``model``, for cfg with the beam
+    size and ``tpu.ancestry_beam`` given."""
+    from vidsitu_tpu_torch.models.selector import build_srl_generate_fn
+
+    cfg = cfg.clone().defrost()
+    cfg.gen.beam_size = beam_size
+    cfg.tpu.ancestry_beam = ancestry
+    return build_srl_generate_fn(cfg, comm, model)
+
+
+def phase_routes(gen, cfg, dev):
+    from vidsitu_tpu.data import build_comm
+    from vidsitu_tpu_torch.models.selector import build_model
+
+    comm = build_comm(cfg)
+    batch = device_batch(cfg, dev)
+    model = gen.model
+    reorder = generator_for(model, cfg, comm)
+    runs = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel") * 2:  # in turns
+        if name == "plain":
+            with plain_gather():
+                runs[name].append(timed_search(reorder, batch))
+        else:
+            runs[name].append(timed_search(reorder, batch))
+    out_k, out_p = runs["kernel"][0][0], runs["plain"][0][0]
+    t_k = float(np.median([t for _, t in runs["kernel"]]))
+    t_p = float(np.median([t for _, t in runs["plain"]]))
+    same = all(torch.equal(o.seqs, out_k.seqs)
+               and torch.equal(o.scores, out_k.scores)
+               for o, _ in runs["kernel"] + runs["plain"])
+    spread = {n: " ".join(f"{t:.3f}" for _, t in r) for n, r in runs.items()}
+    log(f"[9 routes] reorder route, kernel vs plain gather: identical tokens "
+        f"and scores={same}; {t_k:.3f} s vs {t_p:.3f} s per batch (median "
+        f"of 4 each, in turns; {out_k.steps} steps: "
+        f"{t_k * 1e3 / out_k.steps:.3f} vs {t_p * 1e3 / out_p.steps:.3f} "
+        f"ms/step; runs: kernel {spread['kernel']}, plain {spread['plain']})")
+    assert same, "kernel and plain gather routes disagree"
+    verbs = batch["seq_out_by_ev"][:, :, 0, 0].reshape(-1)
+    assert torch.equal(out_k.seqs[:, 0, 0], verbs), "verb not forced"
+    out_a, t_a = timed_search(generator_for(model, cfg, comm, ancestry=True),
+                              batch)
+    out_g, t_g = timed_search(generator_for(model, cfg, comm, beam_size=1),
+                              batch)
+    assert torch.equal(out_g.seqs[:, 0, 0], verbs), "greedy: verb not forced"
+    log(f"[9 routes] bf16 per batch: ancestry {t_a:.3f} s "
+        f"({t_a * 1e3 / out_a.steps:.3f} ms/step, {80 / t_a:.1f} events/s), "
+        f"reorder+kernel {t_k:.3f} s ({80 / t_k:.1f} events/s), greedy "
+        f"{t_g:.3f} s ({t_g * 1e3 / out_g.steps:.3f} ms/step, "
+        f"{80 / t_g:.1f} events/s)")
+    # ancestry vs reorder in float32, same weights
+    f32_cfg = cfg.clone().defrost()
+    f32_cfg.train.dtype = "float32"
+    m32 = build_model(f32_cfg, comm)
+    m32.load_state_dict(model.state_dict(), strict=True)
+    m32.to(dev).eval()
+    out_r32, t_r32 = timed_search(generator_for(m32, f32_cfg, comm), batch)
+    out_a32, t_a32 = timed_search(
+        generator_for(m32, f32_cfg, comm, ancestry=True), batch)
+    equal = (out_r32.seqs[:, 0] == out_a32.seqs[:, 0]).all(-1)
+    share = equal.float().mean().item()
+    log(f"[9 routes] float32 ancestry vs reorder: top-beam tokens equal on "
+        f"{int(equal.sum())}/{equal.numel()} events ({100 * share:.2f} %, "
+        f"limit {100 * ROUTE_AGREEMENT:g} %); {t_a32:.3f} s vs {t_r32:.3f} s")
+    assert share >= ROUTE_AGREEMENT, "ancestry and reorder routes disagree"
+
+
+def phase_real_vocab(cfg, dev):
+    """Phase 10: the generator alone at the real vocabulary size."""
+    from vidsitu_tpu_torch.convert.from_flax import (
+        flax_to_state_dict,
+        seeded_variables,
+    )
+    from vidsitu_tpu_torch.gen.beam import GenConfig
+    from vidsitu_tpu_torch.gen.generate import make_srl_generator
+    from vidsitu_tpu_torch.models.srl_models import SRLModel
+    from vidsitu_tpu_torch.models.transformer import TxConfig
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    t0 = time.perf_counter()
+    dec = TxConfig.from_cfg(cfg.tx_dec, REAL_VOCAB, REAL_VOCAB - 1,
+                            dtype=torch.bfloat16)
+    enc = TxConfig.from_cfg(cfg.tx_dec, REAL_VOCAB, REAL_VOCAB - 1,
+                            side="encoder", dtype=torch.bfloat16)
+    model = SRLModel("sfpret_txe_txd_vbarg", dec, enc, "old", 2048)
+    model.load_state_dict(flax_to_state_dict(seeded_variables(model, 7)),
+                          strict=True)
+    model.to(dev).eval()
+    rng = np.random.default_rng(10)
+    seq = np.full((16, 5, 3, 60), REAL_VOCAB - 1, np.int64)
+    seq[:, :, :, 0] = rng.integers(256, 50256, (16, 5, 1))  # forced
+    batch = {
+        "seq_out_by_ev": torch.from_numpy(seq).to(dev),
+        "frm_feats": torch.from_numpy(
+            rng.standard_normal((16, 5, 2048)).astype(np.float32)).to(dev),
+    }
+    log(f"[10 vocab] model with V={REAL_VOCAB} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    times = {}
+    outs = {}
+    for name, ancestry in (("reorder+kernel", False), ("ancestry", True)):
+        gen = make_srl_generator(
+            model, GenConfig(beam_size=BEAM, max_len_b=int(cfg.gen.max_len_b)),
+            vocab_size=REAL_VOCAB, pad_id=REAL_VOCAB - 1, bos_id=50256,
+            eos_id=50256, ancestry=ancestry, seg_min=64)
+        B.LAUNCHES = 0
+        out, sec = timed_search(gen, batch)
+        launches = B.LAUNCHES
+        assert launches == (0 if ancestry else out.steps), launches
+        assert out.seqs.shape == (80, BEAM, gen.max_len + 1) and bool(
+            torch.isfinite(out.scores).all())
+        assert torch.equal(out.seqs[:, 0, 0],
+                           batch["seq_out_by_ev"][:, :, 0, 0].reshape(-1))
+        times[name], outs[name] = sec, out
+        log(f"[10 vocab] {name}: {sec:.3f} s per batch, {out.steps} steps, "
+            f"{sec * 1e3 / out.steps:.3f} ms/step, {80 / sec:.1f} events/s, "
+            f"gather launches {launches}")
+    same = (outs["reorder+kernel"].seqs[:, 0] == outs["ancestry"].seqs[:, 0]
+            ).all(-1).float().mean().item()
+    log(f"[10 vocab] bf16 routes: top-beam tokens equal on "
+        f"{100 * same:.2f} % of events (bf16 rounding differs by route)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -275,6 +626,7 @@ def main() -> int:
 
     phase_build()
     worst_bf16, times = phase_kernel(dev)
+    gather_err, gather_times = phase_gather_kernel(dev)
 
     from vidsitu_tpu.data.synth import make_synth_dataset
 
@@ -290,6 +642,13 @@ def main() -> int:
         launches = phase_main_path(cfg, state_dict, root / "feats")
         phase_paths_agree(cfg, state_dict, dev)
         phase_default_cfg(paths, root, dev)
+        # the SRL models read the feature width from the directory's name
+        feats_dir = root / "i3d_nl_smoke_feats"
+        feats_dir.symlink_to(root / "feats", target_is_directory=True)
+        gather_launches, gen, srl_cfg = phase_srl_main(paths, root, feats_dir)
+        phase_routes(gen, srl_cfg, dev)
+        phase_srl_profile(gen, device_batch(srl_cfg, dev))
+        phase_real_vocab(srl_cfg, dev)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -305,6 +664,15 @@ def main() -> int:
         "plain_ms": times["s3"][1],
         "ms_s4": times["s4"][0],
         "plain_ms_s4": times["s4"][1],
+    }, {
+        "name": "beam_gather_rows",
+        "route": "cuda",
+        "source": "vidsitu_tpu_torch/csrc/beam_gather.cu",
+        "replaces": "benchmarks/probe_beam_gather.py:62",
+        "launches": gather_launches,
+        "max_abs_err": gather_err,
+        "ms": gather_times[0],
+        "plain_ms": gather_times[1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

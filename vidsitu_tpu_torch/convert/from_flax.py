@@ -5,8 +5,12 @@ so the map is a rename plus a transpose:
 
   params/.../kernel (T,H,W,Cin,Cout) -> .../weight (Cout,Cin,T,H,W)   conv
   params/.../kernel (Din, Dout)      -> .../weight (Dout, Din)         dense
-  params/.../bias                    -> .../bias          conv, dense, BN
-  params/.../scale                   -> .../weight        BN gamma
+  params/.../{q,k,v}_proj/kernel (D, H, Dh) -> .../weight (H*Dh, D)  attention
+  params/.../out_proj/kernel (H, Dh, D)     -> .../weight (D, H*Dh)  (DenseGeneral)
+  params/.../{q,k,v}_proj/bias (H, Dh)      -> .../bias (H*Dh,)
+  params/.../embedding (V, D)        -> .../weight (V, D)              Embed
+  params/.../bias                    -> .../bias      conv, dense, BN, LayerNorm
+  params/.../scale                   -> .../weight    BN gamma, LayerNorm scale
   batch_stats/.../mean, var          -> .../running_mean, running_var
 
 ``variables`` is a nested mapping of numpy arrays in the layout that
@@ -23,6 +27,9 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+
+_QKV = ("q_proj", "k_proj", "v_proj")
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -50,12 +57,18 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 arr = arr.permute(4, 3, 0, 1, 2)
             elif arr.dim() == 2:
                 arr = arr.t()
+            elif arr.dim() == 3 and mod and mod[-1] == "out_proj":
+                arr = arr.reshape(-1, arr.shape[-1]).t()
+            elif arr.dim() == 3 and mod and mod[-1] in _QKV:
+                arr = arr.reshape(arr.shape[0], -1).t()
             else:
                 raise ValueError(f"kernel of rank {arr.dim()} at {path}")
             name = "weight"
-        elif name == "scale":
+        elif name in ("scale", "embedding"):
             name = "weight"
-        elif name != "bias":
+        elif name == "bias":
+            arr = arr.reshape(-1)  # DenseGeneral q/k/v biases are (H, Dh)
+        else:
             raise ValueError(f"unknown flax param {'/'.join(path)}")
         sd[".".join(mod + [name])] = arr.contiguous()
     for path, leaf in _leaves(variables.get("batch_stats", {})):
@@ -76,11 +89,14 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> None:
 def seeded_variables(module: nn.Module, seed: int) -> Dict[str, Any]:
     """Random weights for ``module`` as a flax-layout numpy tree, made from
     ``seed`` with numpy. Conv and dense kernels are normal with std
-    fan_in**-0.5, biases small; BatchNorm gammas lie in [0.5, 1] and
-    running variances in [0.5, 1.5], so that no block is an identity (flax
-    initialises the non-local and final-bottleneck gammas to zero)."""
+    fan_in**-0.5, embeddings with std D**-0.5, biases small; BatchNorm and
+    LayerNorm gammas lie in [0.5, 1] and running variances in [0.5, 1.5],
+    so that no block is an identity (flax initialises the non-local and
+    final-bottleneck gammas to zero). Attention projections (modules with
+    ``n_heads``) get the ``DenseGeneral`` layouts."""
     rng = np.random.default_rng(seed)
     tree: Dict[str, Any] = {}
+    modules = dict(module.named_modules())
 
     def put(coll: str, mod, name: str, value: np.ndarray):
         d = tree.setdefault(coll, {})
@@ -93,15 +109,31 @@ def seeded_variables(module: nn.Module, seed: int) -> Dict[str, Any]:
         shape = tuple(t.shape)
         if name == "num_batches_tracked":
             continue
-        if name == "weight" and len(shape) in (2, 5):
+        heads = None
+        if mod and mod[-1] in _QKV + ("out_proj",):
+            heads = getattr(modules[".".join(mod[:-1])], "n_heads", None)
+        if isinstance(modules[".".join(mod)], nn.Embedding):
+            put("params", mod, "embedding",
+                rng.standard_normal(shape) * shape[1] ** -0.5)
+        elif name == "weight" and len(shape) in (2, 5):
             fan_in = int(np.prod(shape[1:]))
             w = rng.standard_normal(shape) * fan_in ** -0.5
-            put("params", mod, "kernel",
-                w.T if len(shape) == 2 else w.transpose(2, 3, 4, 1, 0))
+            if len(shape) == 5:
+                w = w.transpose(2, 3, 4, 1, 0)
+            elif heads and mod[-1] == "out_proj":  # (H, Dh, D)
+                w = w.T.reshape(heads, -1, shape[0])
+            elif heads:  # (D, H, Dh)
+                w = w.T.reshape(shape[1], heads, -1)
+            else:
+                w = w.T
+            put("params", mod, "kernel", w)
         elif name == "weight":
             put("params", mod, "scale", rng.uniform(0.5, 1.0, shape))
         elif name == "bias":
-            put("params", mod, "bias", 0.02 * rng.standard_normal(shape))
+            b = 0.02 * rng.standard_normal(shape)
+            if heads and mod[-1] in _QKV:
+                b = b.reshape(heads, -1)
+            put("params", mod, "bias", b)
         elif name == "running_mean":
             put("batch_stats", mod, "mean", 0.1 * rng.standard_normal(shape))
         elif name == "running_var":

@@ -84,3 +84,19 @@ def load_nonlocal_attn() -> ctypes.CDLL:
     ]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def load_beam_gather() -> ctypes.CDLL:
+    """The beam-cache row-gather library, built on first call."""
+    lib = ctypes.CDLL(str(build("beam_gather")))
+    fn = lib.beam_gather_rows
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.beam_gather_max_leaves.argtypes = []
+    lib.beam_gather_max_leaves.restype = ctypes.c_int
+    return lib
