@@ -43,7 +43,29 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    time per batch; then a ``torch.profiler`` trace of one more decode of
    the main path's batch (phase 8's profile);
 10. the generator alone at the real vocabulary size (GPT-2's 50,257 tokens
-   plus the 23 role/separator tokens and pad), beam 5, both routes, timed.
+   plus the 23 role/separator tokens and pad), beam 5, both routes, timed;
+11. build: the fused inference bottleneck and the copy probes (built with
+   phase 1's and phase 6's, four nvcc processes started together);
+12. kernel vs plain: the fused bottleneck's two entry points (one block per
+   tile and frame; several frames per block with resident weights) against
+   the plain version in float32 (atol 2e-4) and bf16 (5e-2 of the output
+   scale) at slow-s2 with projection (56x56, 80->64->256), slow-s2 without
+   (256/64/256), slow-s3 (28x28, 512/128/512) and a ragged one (7x9,
+   24->16->32, with projection), seeded non-zero shifts; then timed in turns
+   against the unfused chain (``Bottleneck.forward``, bf16, channels-last)
+   at 256 and 960 frames, and the plain version timed at 256;
+13. this slice's model path at full width: one forward of the seeded
+   SlowFast R50 8x8 (phase 5's model) on 8 clips in bf16 with hooks on the
+   six eligible slow-pathway blocks (s2 blocks 0-2, s3 blocks 1-3);
+   ``run_fused_block`` on each captured input equals the captured output
+   within 2e-2 of its scale; six kernel launches;
+14. the copy probes bit-identical to their input on a 768 MB bf16 tensor,
+   at every block shape, the TPU probe's VMEM-sized blocks refused; GB/s of
+   each beside ``clone()`` and one elementwise op;
+15. ``vidsitu_tpu_torch.bench`` in process: ``gates`` (FLIP / no-flip lines),
+   ``featext 32`` and ``decode5_real``, one JSON line each.
+
+Phases 1-10 run as before, at the same depth and repeats.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
 before the last line, and as the last line
@@ -57,7 +79,6 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -67,7 +88,22 @@ REPO = Path(__file__).resolve().parent
 S3, S4, RAGGED = (3136, 784, 256), (784, 196, 512), (200, 200, 128)
 ATOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 FEATURE_RTOL = 2e-2  # kernel vs plain path, relative to max |feature|
-KERNELS = ("nonlocal_attn", "beam_gather")  # built together, phases 1 and 6
+# built together: phases 1, 6 and 11 (twice)
+KERNELS = ("nonlocal_attn", "beam_gather", "fused_bottleneck", "copy_probe")
+BUILD_PHASE = dict(zip(KERNELS, (1, 6, 11, 11)))
+# published peaks of one H100 SXM (NVIDIA's data sheet, 700 W), for bound_ms
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "float32": 67e12}
+# fused bottleneck shapes: (H, W, Cin, Cmid, Cout, projection)
+FB_SHAPES = {
+    "slow-s2 proj": (56, 56, 80, 64, 256, True),
+    "slow-s2": (56, 56, 256, 64, 256, False),
+    "slow-s3": (28, 28, 512, 128, 512, False),
+    "ragged proj": (7, 9, 24, 16, 32, True),
+}
+FB_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # bf16: of the scale
+FUSED_BLOCKS = ("s2_slow.block_0", "s2_slow.block_1", "s2_slow.block_2",
+                "s3_slow.block_1", "s3_slow.block_2", "s3_slow.block_3")
 # SRL decode at beam 5: 16 segments x 5 events x 5 beams, 3 decoder layers
 BEAM, EVENTS, HEADS, HEAD_DIM, LAYERS = 5, 80, 8, 128, 3
 SELF_LENS = (65, 129, 201)  # the segmented cache: 64, 128, then 200 + 1
@@ -86,29 +122,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> list:
-    """Per-call times (ms) of ``fn`` by CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
-def interleaved_medians(fn_a, fn_b, reps: int):
-    """Median ms of two functions timed in turns a, b, b, a."""
-    times = {fn_a: [], fn_b: []}
-    for pair in ((fn_a, fn_b), (fn_b, fn_a)):
-        for fn in pair:
-            times[fn].extend(cuda_ms(fn, reps))
-    return float(np.median(times[fn_a])), float(np.median(times[fn_b]))
+def bound(n_bytes: float, n_ops: float, kind: str = "bf16"):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of bytes over its memory rate and operations over its peak rate."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S[kind] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
 def seeded_qkv(rng, b, sq, sk, d, dtype, dev):
@@ -117,7 +136,7 @@ def seeded_qkv(rng, b, sq, sk, d, dtype, dev):
 
 
 def phase_build():
-    """Phases 1 and 6: every kernel from the checkout's source, one nvcc
+    """Phases 1, 6 and 11: every kernel from the checkout's source, one nvcc
     per source, all started together."""
     from vidsitu_tpu_torch.ops import _build
 
@@ -132,7 +151,9 @@ def phase_build():
         secs = dict(zip(KERNELS, pool.map(timed, KERNELS)))
     _build.load_nonlocal_attn()
     _build.load_beam_gather()
-    for phase, name in zip((1, 6), KERNELS):
+    _build.load_fused_bottleneck()
+    _build.load_copy_probe()
+    for name, phase in BUILD_PHASE.items():
         log(f"[{phase} build] {name}.cu -> {_build.library_path(name).name} "
             f"in {secs[name]:.2f} s")
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
@@ -173,15 +194,23 @@ def phase_kernel(dev):
             lambda: A.fused_attention(q, k, v, "softmax", d ** -0.5),
             lambda: A.attention_reference(q, k, v, "softmax", d ** -0.5), 20)
         flops = 4 * 32 * sq * sk * d
-        times[name] = (ms, plain_ms)
+        # the library's fused attention, timed as a yardstick only
+        q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
+        lib_ms = float(np.median(cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=d ** -0.5), 20)))
+        moved = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+        times[name] = (ms, plain_ms, lib_ms, *bound(moved, flops))
         log(f"[2 kernel] time {name} B=32 bf16 softmax: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+            f"{times[name][3]:.4f} ms by {times[name][4]}, "
             f"max_abs_err={err:.3e}")
     return worst_bf16, times
 
 
 def smoke_cfg(paths, root, preset):
-    from vidsitu_tpu.utils.config import get_cfg_with_overrides
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
 
     return get_cfg_with_overrides("chip_smoke", **{
         **paths,
@@ -202,7 +231,7 @@ def seeded_state_dict(cfg):
 
 
 def phase_main_path(cfg, state_dict, out_dir):
-    from vidsitu_tpu.data.comm import build_comm
+    from vidsitu_tpu_torch.data.comm import build_comm
     from vidsitu_tpu_torch.extract import extract_features
     from vidsitu_tpu_torch.ops import attention as A
 
@@ -236,8 +265,8 @@ def phase_main_path(cfg, state_dict, out_dir):
 
 
 def phase_paths_agree(cfg, state_dict, dev):
-    from vidsitu_tpu.data.comm import build_comm
-    from vidsitu_tpu.data.loader import fold_frame_events, stack_collate
+    from vidsitu_tpu_torch.data.comm import build_comm
+    from vidsitu_tpu_torch.data.loader import fold_frame_events, stack_collate
     from vidsitu_tpu_torch.extract import FramesOnlyDS
     from vidsitu_tpu_torch.models.vb_models import build_feat_extractor
     from vidsitu_tpu_torch.models.video_backbone import NonLocalBlock
@@ -300,6 +329,7 @@ def phase_default_cfg(paths, root, dev):
         f"{out.dtype} finite={bool(torch.isfinite(out).all())} "
         f"{'ok' if ok else 'FAIL'}")
     assert ok
+    return model, {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
 
 
 def beam_rows(gen, dev):
@@ -361,6 +391,7 @@ def phase_gather_kernel(dev):
             times[(length, calls)] = (ms, plain_ms)
             what = ("device time, calls queued" if calls > 1
                     else "one call per event pair, host time included")
+            times[(length, calls)] += bound(moved, 0)
             log(f"[7 gather] time 12 leaves L={length} bf16 ({moved / 2e9:.3f}"
                 f" GB each way), {what}: kernel {ms:.4f} ms "
                 f"({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms "
@@ -380,8 +411,8 @@ def srl_args(paths, root, feats_dir, *extra):
 
 def device_batch(cfg, dev):
     """The valid split's first eval batch, padded like the evaluator's."""
-    from vidsitu_tpu.data import get_data
-    from vidsitu_tpu.evaluation.evaluators import pad_batch_to
+    from vidsitu_tpu_torch.data import get_data
+    from vidsitu_tpu_torch.evaluation.evaluators import pad_batch_to
 
     batch = pad_batch_to(next(iter(get_data(cfg).valid_dl)),
                          int(cfg.train.bsv))
@@ -456,21 +487,6 @@ def phase_srl_profile(gen, batch):
             f"{e.count:6d}x  {e.key[:80]}")
 
 
-@contextmanager
-def plain_gather():
-    """Route beam search's cache reorder to the plain version (the A/B of
-    the kernel inside the decode)."""
-    from vidsitu_tpu_torch.gen import beam
-    from vidsitu_tpu_torch.ops import beam_gather as B
-
-    saved = beam.gather_rows
-    beam.gather_rows = B.beam_gather_rows_reference
-    try:
-        yield
-    finally:
-        beam.gather_rows = saved
-
-
 def timed_search(gen, batch):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -491,7 +507,8 @@ def generator_for(model, cfg, comm, beam_size=BEAM, ancestry=False):
 
 
 def phase_routes(gen, cfg, dev):
-    from vidsitu_tpu.data import build_comm
+    from vidsitu_tpu_torch.data import build_comm
+    from vidsitu_tpu_torch.gates import plain_gather
     from vidsitu_tpu_torch.models.selector import build_model
 
     comm = build_comm(cfg)
@@ -603,6 +620,150 @@ def phase_real_vocab(cfg, dev):
         f"{100 * same:.2f} % of events (bf16 rounding differs by route)")
 
 
+def fb_operands(rng, cin, cmid, cout, proj, dtype, dev):
+    """Seeded folded weights (std fan_in**-0.5) and non-zero float32 shifts
+    in the fused bottleneck's layouts."""
+    def weight(*shape):
+        fan_in = int(np.prod(shape[:-1]))
+        return torch.from_numpy((rng.standard_normal(shape) * fan_in ** -0.5)
+                                .astype(np.float32)).to(dev, dtype)
+
+    def shift(n):
+        return torch.from_numpy((0.1 * rng.standard_normal((1, n)))
+                                .astype(np.float32)).to(dev)
+
+    ops = [weight(cin, cmid), shift(cmid), weight(3, 3, cmid, cmid),
+           shift(cmid), weight(cmid, cout), shift(cout)]
+    return ops + ([weight(cin, cout), shift(cout)] if proj else [None, None])
+
+
+def phase_fused_kernel(dev):
+    """Phase 12: both entry points against the plain version, then timed."""
+    from vidsitu_tpu_torch import gates
+    from vidsitu_tpu_torch.ops import fused_bottleneck as FB
+
+    rng = np.random.default_rng(12)
+    worst = {"frames": 0.0, "multi": 0.0}
+    for name, (h, w, cin, cmid, cout, proj) in FB_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            ops = fb_operands(rng, cin, cmid, cout, proj, dtype, dev)
+            x = torch.from_numpy(rng.standard_normal((8, h, w, cin)).astype(
+                np.float32)).to(dev, dtype)
+            want = FB.fused_bottleneck_plain(x, *ops).float()
+            scale = want.abs().max().item()
+            limit = FB_TOL[dtype] * (scale if dtype == torch.bfloat16 else 1.0)
+            runs = {"frames": lambda: FB.fused_bottleneck_frames(x, *ops)}
+            if not proj:
+                for fps in (2, 4):
+                    runs[f"multi fps={fps}"] = (
+                        lambda fps=fps: FB.fused_bottleneck_multi(
+                            x, *ops[:6], frames_per_step=fps))
+            for entry, fn in runs.items():
+                got = fn()
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs().max().item()
+                ok = got.shape == want.shape and got.dtype == dtype and (
+                    err <= limit)
+                staged = (f" staged(wa,wb,wc)={FB.LAST_STAGED}"
+                          if entry != "frames" else "")
+                log(f"[12 fused] {name} 8x{h}x{w} {cin}->{cmid}->{cout} "
+                    f"{str(dtype)[6:]} {entry}: max_abs_err={err:.3e} (limit "
+                    f"{limit:.3e}, scale {scale:.3f}){staged} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, "fused bottleneck disagrees with the plain version"
+                if dtype == torch.bfloat16:
+                    key = "frames" if entry == "frames" else "multi"
+                    worst[key] = max(worst[key], err)
+    timed = gates.gate_fused_bottleneck(dev)
+    # the plain version at the gate's 256 frames (float32 convs on the bf16
+    # operands: it repeats the kernel's arithmetic, it is no yardstick)
+    block = gates.s2_block(dev)
+    folded = FB.fold_bottleneck(block, torch.bfloat16)
+    x = torch.randn((256, 56, 56, 256), device=dev).to(torch.bfloat16)
+    plain_ms = float(np.median(cuda_ms(
+        lambda: FB.fused_bottleneck_plain(x, *folded), 3)))
+    log(f"[12 fused] plain version, slow-s2 256 frames bf16: {plain_ms:.3f} ms")
+    return worst, timed, plain_ms
+
+
+def phase_fused_in_model(model, inp, dev):
+    """Phase 13: the fused block on the six eligible slow-pathway blocks'
+    real inputs, captured in one SlowFast forward, against the blocks' own
+    outputs."""
+    from vidsitu_tpu_torch.ops import fused_bottleneck as FB
+
+    blocks = dict(model.backbone.named_modules())
+    captured = {}
+    hooks = [blocks[name].register_forward_hook(
+        lambda mod, args, out, name=name: captured.__setitem__(
+            name, (args[0], out))) for name in FUSED_BLOCKS]
+    with torch.inference_mode():
+        feats = model.clip_features(inp)
+    for h in hooks:
+        h.remove()
+    assert bool(torch.isfinite(feats).all()) and set(captured) == set(
+        FUSED_BLOCKS)
+    before = FB.LAUNCHES["fused_bottleneck_frames"]
+    worst = 0.0
+    for name in FUSED_BLOCKS:
+        x, want = captured[name]
+        want = want.permute(0, 2, 3, 4, 1).float()
+        got = FB.run_fused_block(blocks[name], x.permute(0, 2, 3, 4, 1),
+                                 dtype=torch.bfloat16).float()
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        ok = got.shape == want.shape and err <= FEATURE_RTOL * scale
+        log(f"[13 model] {name} {tuple(x.shape)} -> {tuple(want.shape)}: "
+            f"fused vs the block's output max_abs_diff={err:.4e}, scale "
+            f"{scale:.4e}, ratio {err / scale:.3e} (limit {FEATURE_RTOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, f"fused block disagrees with {name}"
+        worst = max(worst, err / scale)
+    launches = FB.LAUNCHES["fused_bottleneck_frames"] - before
+    assert launches == len(FUSED_BLOCKS), launches
+    log(f"[13 model] {launches} fused-bottleneck launches for "
+        f"{len(FUSED_BLOCKS)} blocks")
+    return worst
+
+
+def phase_copy_probes(dev):
+    """Phase 14: every copy probe bit-identical at every block shape (the
+    gate asserts it), rates beside clone() and one elementwise op."""
+    from vidsitu_tpu_torch import gates
+
+    res = gates.gate_copy_floor(dev)
+    assert sorted(map(tuple, res["refused_blocks"])) == sorted(
+        gates.REFUSED_BLOCKS), "a VMEM-sized block was not refused"
+    log(f"[14 copy] bit-identical at blocks {list(res['staged_gbps'])}, "
+        f"pipelined and direct; refused {res['refused_blocks']}")
+    return res
+
+
+def phase_bench(dev):
+    """Phase 15: the measuring entry point in process."""
+    from vidsitu_tpu_torch import bench
+
+    name = torch.cuda.get_device_name(dev)
+    (gates_res,) = bench.main(["gates"])
+    assert gates_res["device"] == name
+    assert gates_res["beam_gather"]["pass"], gates_res["beam_gather"]
+    assert isinstance(gates_res["copy_floor"]["flip"], bool)
+    assert all(isinstance(v["flip"], bool)
+               for v in gates_res["fused_bottleneck"].values())
+    (featext,) = bench.main(["featext", "32"])
+    (decode,) = bench.main(["decode5_real"])
+    for res, metric in ((featext, "slowfast_r50_8x8_featext"),
+                        (decode, "srl_beam5_decode_latency_d1024")):
+        assert res["metric"] == metric and res["device"] == name, res
+        assert np.isfinite(res["value"]) and res["value"] > 0, res
+        assert name in res["roofline_of"] and res["roofline_frac"] > 0, res
+    log(f"[15 bench] gates, featext 32 ({featext['value']} clips/s, "
+        f"{featext['tflops']} TFLOP/s) and decode5_real "
+        f"({decode['value']} ms/video over {decode['steps']} steps) ok")
+    return gates_res, featext, decode
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -612,6 +773,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    global cuda_ms, interleaved_medians
+    from vidsitu_tpu_torch.timing import cuda_ms, interleaved_medians
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -627,8 +790,10 @@ def main() -> int:
     phase_build()
     worst_bf16, times = phase_kernel(dev)
     gather_err, gather_times = phase_gather_kernel(dev)
+    fused_err, fused_timed, fused_plain_ms = phase_fused_kernel(dev)
+    copy_res = phase_copy_probes(dev)
 
-    from vidsitu_tpu.data.synth import make_synth_dataset
+    from vidsitu_tpu_torch.data.synth import make_synth_dataset
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
@@ -641,7 +806,7 @@ def main() -> int:
         state_dict = seeded_state_dict(cfg)
         launches = phase_main_path(cfg, state_dict, root / "feats")
         phase_paths_agree(cfg, state_dict, dev)
-        phase_default_cfg(paths, root, dev)
+        sf_model, sf_inp = phase_default_cfg(paths, root, dev)
         # the SRL models read the feature width from the directory's name
         feats_dir = root / "i3d_nl_smoke_feats"
         feats_dir.symlink_to(root / "feats", target_is_directory=True)
@@ -650,30 +815,87 @@ def main() -> int:
         phase_srl_profile(gen, device_batch(srl_cfg, dev))
         phase_real_vocab(srl_cfg, dev)
 
+    # this slice's main path: the fused block on the model's own blocks,
+    # then the measuring entry point; counts set to 0 just before
+    from vidsitu_tpu_torch.ops import beam_gather as B
+    from vidsitu_tpu_torch.ops import copy_probe as CP
+    from vidsitu_tpu_torch.ops import fused_bottleneck as FB
+
+    FB.reset_launches()
+    CP.reset_launches()
+    B.LAUNCHES = 0
+    model_err = phase_fused_in_model(sf_model, sf_inp, dev)
+    del sf_model, sf_inp
+    torch.cuda.empty_cache()
+    gates_res, featext, decode = phase_bench(dev)
+    slice_launches = {**FB.LAUNCHES, **CP.LAUNCHES,
+                      "beam_gather_rows": B.LAUNCHES}
+    log(f"[15 bench] kernel launches on this slice's path: {slice_launches}")
+    assert all(n > 0 for n in slice_launches.values()), slice_launches
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert not leaked, f"jax was imported: {leaked[:5]}"
-    log(json.dumps({"kernels": [{
-        "name": "nl_attn_fwd",
-        "route": "cuda",
-        "source": "vidsitu_tpu_torch/csrc/nonlocal_attn.cu",
-        "replaces": "vidsitu_tpu/ops/attention.py:61",
-        "launches": launches,
-        "max_abs_err": worst_bf16,
-        "ms": times["s3"][0],
-        "plain_ms": times["s3"][1],
-        "ms_s4": times["s4"][0],
-        "plain_ms_s4": times["s4"][1],
-    }, {
-        "name": "beam_gather_rows",
-        "route": "cuda",
-        "source": "vidsitu_tpu_torch/csrc/beam_gather.cu",
-        "replaces": "benchmarks/probe_beam_gather.py:62",
-        "launches": gather_launches,
-        "max_abs_err": gather_err,
-        "ms": gather_times[0],
-        "plain_ms": gather_times[1],
-    }]}))
+    def kernel_row(name, source, replaces, n_launches, err, ms, plain_ms,
+                   bound_ms, bound_by, library_ms, **more):
+        return {"name": name, "route": "cuda",
+                "source": f"vidsitu_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, **more}
+
+    s3, s4 = times["s3"], times["s4"]
+    # fused bottleneck at the gate's 256 frames of 56x56, 256/64/256, bf16
+    fb256, fb960 = fused_timed["256"], fused_timed["960"]
+    fb_ops = 2 * 56 * 56 * (256 * 64 + 9 * 64 * 64 + 64 * 256)
+    fb_bound = bound(fb256["least_bytes"], 256 * fb_ops)
+    fb_bound960 = bound(fb960["least_bytes"], 960 * fb_ops)
+    copy_bytes = 2 * 6144 * 65536 * 2
+    copy_ms = {k: copy_bytes / 1e6 / v for k, v in (
+        ("staged", max(copy_res["staged_gbps"].values())),
+        ("pipelined", copy_res["pipelined_gbps"]),
+        ("direct", copy_res["direct_gbps"]),
+        ("clone", copy_res["clone_gbps"]))}
+    copy_bound = bound(copy_bytes, 0)
+    log(json.dumps({"kernels": [
+        kernel_row("nl_attn_fwd", "nonlocal_attn.cu",
+                   "vidsitu_tpu/ops/attention.py:61", launches, worst_bf16,
+                   s3[0], s3[1], s3[3], s3[4], s3[2], ms_s4=s4[0],
+                   plain_ms_s4=s4[1], library_ms_s4=s4[2], bound_ms_s4=s4[3]),
+        kernel_row("beam_gather_rows", "beam_gather.cu",
+                   "benchmarks/probe_beam_gather.py:62", gather_launches,
+                   gather_err, gather_times[0], gather_times[1],
+                   gather_times[2], gather_times[3], gather_times[1],
+                   launches_slice=slice_launches["beam_gather_rows"]),
+        kernel_row("fused_bottleneck_frames", "fused_bottleneck.cu",
+                   "benchmarks/probe_fused_bottleneck.py:108",
+                   slice_launches["fused_bottleneck_frames"],
+                   fused_err["frames"], fb256["frames_ms"], fused_plain_ms,
+                   *fb_bound, fb256["unfused_ms"], ms_960=fb960["frames_ms"],
+                   library_ms_960=fb960["unfused_ms"],
+                   bound_ms_960=fb_bound960[0], model_rel_err=model_err),
+        kernel_row("fused_bottleneck_multi", "fused_bottleneck.cu",
+                   "benchmarks/micro4.py:84",
+                   slice_launches["fused_bottleneck_multi"],
+                   fused_err["multi"],
+                   min(fb256["multi2_ms"], fb256["multi4_ms"]),
+                   fused_plain_ms, *fb_bound, fb256["unfused_ms"],
+                   ms_960=min(fb960["multi2_ms"], fb960["multi4_ms"]),
+                   library_ms_960=fb960["unfused_ms"],
+                   bound_ms_960=fb_bound960[0]),
+        kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
+                   slice_launches["staged_copy"], 0.0, copy_ms["staged"],
+                   copy_ms["clone"], *copy_bound, copy_ms["clone"]),
+        kernel_row("pipelined_copy", "copy_probe.cu",
+                   "benchmarks/micro3.py:130",
+                   slice_launches["pipelined_copy"], 0.0,
+                   copy_ms["pipelined"], copy_ms["clone"], *copy_bound,
+                   copy_ms["clone"]),
+        kernel_row("direct_copy", "copy_probe.cu", "benchmarks/micro3.py:158",
+                   slice_launches["direct_copy"], 0.0, copy_ms["direct"],
+                   copy_ms["clone"], *copy_bound, copy_ms["clone"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -168,13 +168,13 @@ def test_port_never_imports_jax():
 
 
 def test_converter_nonlocal_index_fault_is_pinned():
-    """Known fault shared by both packages' --ckpt path: the PySlowFast
+    """Known fault of the JAX package's --ckpt path: its PySlowFast
     converter walks ``nonlocal{j}`` from j=0 (vidsitu_tpu/convert/
     slowfast_torch.py:121-141), but PySlowFast, flax and the port name
     non-local modules by block index (``nonlocal1``). Such a block's
-    weights are dropped, and strict conversion refuses the leftovers. When
-    the converter is repaired this test must change with it (ROADMAP.md,
-    Queue 3)."""
+    weights are dropped, and strict conversion refuses the leftovers. The
+    port's own converter walks the block indices (next test); the JAX
+    package stays as it is, and this test pins it (ROADMAP.md, Queue 3)."""
     from vidsitu_tpu.convert.slowfast_torch import convert_video_backbone
 
     rng = np.random.default_rng(0)
@@ -192,3 +192,41 @@ def test_converter_nonlocal_index_fault_is_pinned():
     assert "nl_1" not in params.get("s3", {})
     with pytest.raises(ValueError, match="12"):
         convert_video_backbone(sd, "i3d", strict=True)
+
+
+@pytest.mark.parametrize("blocks", [(1,), (1, 3), (1, 3, 5)])
+def test_port_converter_keeps_nonlocal_weights_named_by_block_index(blocks):
+    """The port's own converter (vidsitu_tpu_torch/convert/slowfast_torch.py)
+    walks ``nonlocal{i}`` by block index, so an I3D-NL state dict keeps all
+    twelve keys of every non-local block and strict conversion passes."""
+    from vidsitu_tpu_torch.convert.slowfast_torch import convert_video_backbone
+
+    rng = np.random.default_rng(0)
+    sd = {}
+    for i in blocks:
+        for conv in ("conv_theta", "conv_phi", "conv_g", "conv_out"):
+            sd[f"s3.pathway0_nonlocal{i}.{conv}.weight"] = (
+                rng.standard_normal((4, 4, 1, 1, 1)).astype(np.float32))
+            sd[f"s3.pathway0_nonlocal{i}.{conv}.bias"] = rng.standard_normal(
+                4).astype(np.float32)
+        for name in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"s3.pathway0_nonlocal{i}.bn.{name}"] = rng.standard_normal(
+                4).astype(np.float32)
+    sd["s1.pathway0_stem.conv.weight"] = np.zeros((8, 3, 1, 7, 7), np.float32)
+    for name in ("weight", "bias", "running_mean", "running_var"):
+        sd[f"s1.pathway0_stem.bn.{name}"] = np.ones(8, np.float32)
+    params, stats = convert_video_backbone(sd, "i3d", strict=True)
+    assert sorted(params["s3"]) == [f"nl_{i}" for i in blocks]
+    for i in blocks:
+        nl = params["s3"][f"nl_{i}"]
+        src = f"s3.pathway0_nonlocal{i}"
+        for ours, theirs in (("theta", "conv_theta"), ("phi", "conv_phi"),
+                             ("g", "conv_g"), ("out", "conv_out")):
+            np.testing.assert_array_equal(
+                nl[ours]["kernel"],
+                sd[f"{src}.{theirs}.weight"].transpose(2, 3, 4, 1, 0))
+            np.testing.assert_array_equal(nl[ours]["bias"],
+                                          sd[f"{src}.{theirs}.bias"])
+        np.testing.assert_array_equal(nl["bn"]["scale"], sd[f"{src}.bn.weight"])
+        np.testing.assert_array_equal(stats["s3"][f"nl_{i}"]["bn"]["var"],
+                                      sd[f"{src}.bn.running_var"])

@@ -3,7 +3,7 @@ vidsitu_tpu/evaluation/evaluators.py:401; reference: evl_vsitu.py:148-214).
 
 One process: pad each batch to the eval batch size, generate, decode the
 tokens into role dicts, dedupe by ``ann_idx``, write ``{dl_name}_0.pkl``
-(the leaderboard format) and score it with the shared ``EvalFnCap``.
+(the leaderboard format) and score it with ``EvalFnCap``.
 """
 
 from __future__ import annotations
@@ -15,9 +15,43 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from vidsitu_tpu.evaluation.evaluators import conv_seq_to_srl, pad_batch_to
-from vidsitu_tpu.evaluation.evl_fns import EvalFnCap
-from vidsitu_tpu.utils.io import write_pickle
+from ..utils.io import write_pickle
+from .evl_fns import EvalFnCap
+
+
+def pad_batch_to(batch: Dict[str, np.ndarray], size: int) -> Dict[str, np.ndarray]:
+    """Repeat the last row so every batch has a static shape (the
+    duplicated ann_idx rows are deduped by the scorers)."""
+    b = next(iter(batch.values())).shape[0]
+    if b == size:
+        return batch
+    reps = size - b
+    return {
+        k: np.concatenate([v, np.repeat(v[-1:], reps, axis=0)], axis=0)
+        for k, v in batch.items()
+    }
+
+
+def conv_seq_to_srl(inp_seq: str, ag_start_values) -> Dict[str, str]:
+    """Parse 'vb <ArgX> text <ArgY> text...' (evl_vsitu.py:174-194)."""
+    inp_tok_lst = inp_seq.split(" ")
+    if "." not in inp_tok_lst[0]:
+        return {}
+    vb_dct = {"vb_id": inp_tok_lst[0]}
+    ix = 1
+    curr_str_lst: List[str] = []
+    curr_arg_name = ""
+    while ix < len(inp_tok_lst):
+        if inp_tok_lst[ix] not in ag_start_values:
+            curr_str_lst.append(inp_tok_lst[ix])
+        else:
+            if ix > 1:
+                vb_dct[curr_arg_name] = " ".join(curr_str_lst)
+            curr_arg_name = inp_tok_lst[ix].split("<", 1)[1].rsplit(">", 1)[0]
+            curr_str_lst = []
+        ix += 1
+    vb_dct[curr_arg_name] = " ".join(curr_str_lst)
+    return vb_dct
 
 
 class EvalB_Gen:

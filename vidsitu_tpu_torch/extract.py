@@ -19,10 +19,9 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from vidsitu_tpu.data.dataset import VsituDS
-from vidsitu_tpu.data.loader import DataLoader, fold_frame_events
-
 from .convert.from_flax import flax_to_state_dict, seeded_variables
+from .data.dataset import VsituDS
+from .data.loader import DataLoader, fold_frame_events
 from .models.vb_models import build_feat_extractor
 
 _FRAME_KEYS = ("frms_ev_fast_tensor", "frms_ev_slow_tensor")
@@ -273,8 +272,8 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*", help="--dotted.key=value")
     args, unknown = ap.parse_known_args(argv)
 
-    from vidsitu_tpu.data.comm import build_comm
-    from vidsitu_tpu.utils.config import get_cfg_with_overrides
+    from .data.comm import build_comm
+    from .utils.config import get_cfg_with_overrides
 
     overrides = {}
     for tok in list(args.overrides) + list(unknown):
@@ -294,8 +293,8 @@ def main(argv=None):
     comm = build_comm(cfg)
     state_dict = None
     if args.ckpt:
-        from vidsitu_tpu.convert.hf_torch import load_torch_state_dict
-        from vidsitu_tpu.convert.slowfast_torch import convert_sfbase_checkpoint
+        from .convert.hf_torch import load_torch_state_dict
+        from .convert.slowfast_torch import convert_sfbase_checkpoint
 
         conv = convert_sfbase_checkpoint(
             load_torch_state_dict(args.ckpt), cfg.vid_mdl.arch)

@@ -72,8 +72,7 @@ def main_fn(cfg, uid: str, device, weights: str = "",
     name, the evaluator (which holds the per-batch times and the generator,
     with its model and decode-step counts), the predictions directory and
     the config."""
-    from vidsitu_tpu.data import get_data
-
+    from .data import get_data
     from .evaluation.evaluators import EvalB_Gen
     from .extract import resolve_device
     from .models.selector import build_model, build_srl_generate_fn
@@ -113,7 +112,7 @@ def main_fn(cfg, uid: str, device, weights: str = "",
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    from vidsitu_tpu.utils.config import CfgProcessor, get_cfg_with_overrides
+    from .utils.config import CfgProcessor, get_cfg_with_overrides
 
     uid, overrides, flags = parse_cli(
         list(argv) if argv is not None else sys.argv[1:])

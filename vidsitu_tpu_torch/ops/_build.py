@@ -100,3 +100,30 @@ def load_beam_gather() -> ctypes.CDLL:
     lib.beam_gather_max_leaves.argtypes = []
     lib.beam_gather_max_leaves.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def load_fused_bottleneck() -> ctypes.CDLL:
+    """The fused inference bottleneck library, built on first call."""
+    lib = ctypes.CDLL(str(build("fused_bottleneck")))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_bottleneck_frames.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+    lib.fused_bottleneck_frames.restype = i32
+    lib.fused_bottleneck_multi.argtypes = (
+        [ptr] * 8 + [i32] * 9 + [ctypes.POINTER(i32), ptr])
+    lib.fused_bottleneck_multi.restype = i32
+    return lib
+
+
+@functools.cache
+def load_copy_probe() -> ctypes.CDLL:
+    """The copy-probe library (staged, pipelined and direct copies), built
+    on first call."""
+    lib = ctypes.CDLL(str(build("copy_probe")))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.staged_copy.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr]
+    lib.pipelined_copy.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.direct_copy.argtypes = [ptr, ptr, i64, i32, ptr]
+    for fn in (lib.staged_copy, lib.pipelined_copy, lib.direct_copy):
+        fn.restype = i32
+    return lib
