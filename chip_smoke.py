@@ -5,20 +5,29 @@
 
 Phases, each of which must pass (any failure raises and exits non-zero):
 
-1. build: the non-local attention kernel from vidsitu_tpu_torch/csrc/;
-2. kernel vs plain: the kernel against its plain PyTorch version at the
-   I3D-NL 224 px shapes (B=8: stage 3 3136x784x256, stage 4 784x196x512)
-   and a ragged one (200x200x128), both kinds, bf16 and float32, with the
-   JAX package's tolerances (atol 2e-4 float32, 5e-2 bf16); then both
-   timed in bf16 at the main path's batch (32 clips);
+1. build: the non-local attention kernels (one source, two entries: the
+   wgmma kernel and the wmma / float32 one) from vidsitu_tpu_torch/csrc/;
+2. kernel vs plain: both entries against the plain PyTorch version at the
+   I3D-NL 224 px shapes (B=8: stage 3 3136x784x256, stage 4 784x196x512),
+   a ragged one (200x200x128) and two whose Sq and Sk are no multiples of
+   the wgmma kernel's tiles (B=8 130x57x256, B=3 65x196x512), both kinds,
+   with the JAX package's tolerances (atol 2e-4 float32, which only the
+   wmma entry takes; 5e-2 bf16, or one bf16 step of the largest output
+   where that is more); the wgmma entry also against the plain version
+   that repeats its tiled arithmetic; then the wgmma entry, the wmma entry,
+   the plain version and the library's fused attention timed in turns in
+   bf16 at the main path's batch (32 clips);
 3. main path: ``extract_features`` of I3D-NL R50 (full width and depth,
    224 px, 8 frames, bf16, seeded weights with non-zero BatchNorm gammas)
    over a synthetic valid split of 8 segments = 40 clips at clip_batch 32:
    2 dispatches (the second zero-padded), 8 files of (5, 2048), finite, and
-   exactly 5 non-local blocks x 2 dispatches kernel launches;
+   exactly 5 non-local blocks x 2 dispatches kernel launches, all on the
+   entry that ``kernel_entry`` names for bf16 at d = 256 and 512;
 4. kernel path == plain path: one batch of those clips through the model
-   once with the kernel and once with the plain attention, features within
-   2e-2 of the feature scale (bf16), and both timed;
+   once with the routed kernel and once with the plain attention, features
+   within 2e-2 of the feature scale (bf16); the forward timed in turns with
+   the routed kernel, with the wmma entry forced, and with the plain
+   attention;
 5. the default configuration (SlowFast R50 8x8) forward on 8 clips;
 6. build: the beam-cache row-gather kernel (built with phase 1's, both
    nvcc processes started together);
@@ -72,7 +81,9 @@ before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import functools
 import json
+import math
 import pickle
 import subprocess
 import sys
@@ -86,7 +97,13 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 S3, S4, RAGGED = (3136, 784, 256), (784, 196, 512), (200, 200, 128)
+# (name, B, (Sq, Sk, d)) of phase 2's checks; the last two are ragged against
+# the wgmma kernel's 128 / 64 query rows and 80 / 32 keys per tile
+ATTN_CHECKS = (("s3", 8, S3), ("s4", 8, S4), ("ragged", 8, RAGGED),
+               ("ragged-d256", 8, (130, 57, 256)),
+               ("ragged-d512", 3, (65, 196, 512)))
 ATOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+V1_ENTRY = "nl_attn_fwd"  # the wmma / float32 entry
 FEATURE_RTOL = 2e-2  # kernel vs plain path, relative to max |feature|
 # built together: phases 1, 6 and 11 (twice)
 KERNELS = ("nonlocal_attn", "beam_gather", "fused_bottleneck", "copy_probe")
@@ -130,6 +147,17 @@ def bound(n_bytes: float, n_ops: float, kind: str = "bf16"):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def attn_limit(dtype, ref):
+    """The attention check's tolerance: ATOL, and for bf16 no less than one
+    bf16 step at the largest output. A dot_product over few keys gives
+    outputs beyond 6.4, where one rounding step of the bf16 output itself
+    (2**-4 from 8 on) exceeds 5e-2, for any kernel and the plain version."""
+    if dtype != torch.bfloat16:
+        return ATOL[dtype]
+    top = ref.abs().max().item()
+    return max(ATOL[dtype], 2.0 ** (math.floor(math.log2(top)) - 7))
+
+
 def seeded_qkv(rng, b, sq, sk, d, dtype, dev):
     return [torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32))
             .to(dev, dtype) for s in (sq, sk, sk)]
@@ -157,56 +185,85 @@ def phase_build():
         log(f"[{phase} build] {name}.cu -> {_build.library_path(name).name} "
             f"in {secs[name]:.2f} s")
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 log("    ptxas:", line.strip())
 
 
 def phase_kernel(dev):
+    """Phase 2: every entry that takes the input against the plain version,
+    then the four ways to compute the attention timed in turns."""
     from vidsitu_tpu_torch.ops import attention as A
 
     rng = np.random.default_rng(0)
-    worst_bf16 = 0.0
-    for name, (sq, sk, d) in (("s3", S3), ("s4", S4), ("ragged", RAGGED)):
+    worst = {name: 0.0 for name in A.ENTRIES}  # bf16, by entry
+    for name, b, (sq, sk, d) in ATTN_CHECKS:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = seeded_qkv(rng, 8, sq, sk, d, dtype, dev)
+            q, k, v = seeded_qkv(rng, b, sq, sk, d, dtype, dev)
+            # the routed entry, and the wmma entry where it is another
+            entries = dict.fromkeys((A.kernel_entry(dtype, d), V1_ENTRY))
             for kind in ("softmax", "dot_product"):
-                out = A.fused_attention(q, k, v, kind, d ** -0.5)
                 ref = A.attention_reference(q, k, v, kind, d ** -0.5)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                ok = out.shape == ref.shape and out.dtype == dtype and (
-                    err <= ATOL[dtype])
-                log(f"[2 kernel] {name} B=8 Sq={sq} Sk={sk} d={d} "
-                    f"{str(dtype)[6:]} {kind}: max_abs_err={err:.3e} "
-                    f"(atol {ATOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
-                assert ok, "kernel disagrees with the plain version"
-                if dtype == torch.bfloat16:
-                    worst_bf16 = max(worst_bf16, err)
+                limit = attn_limit(dtype, ref)
+                for entry in entries:
+                    out = A.fused_attention(q, k, v, kind, d ** -0.5,
+                                            entry=entry)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    ok = out.shape == ref.shape and out.dtype == dtype and (
+                        err <= limit)
+                    tiled = ""
+                    if entry != V1_ENTRY:
+                        til = A.attention_tiled_reference(
+                            q, k, v, kind, d ** -0.5, A.wgmma_block_k(d))
+                        err_t = (out.float() - til.float()).abs().max().item()
+                        tiled = f" vs tiled plain {err_t:.3e}"
+                        ok = ok and err_t <= limit
+                    log(f"[2 kernel] {entry} {name} B={b} Sq={sq} Sk={sk} "
+                        f"d={d} {str(dtype)[6:]} {kind}: max_abs_err="
+                        f"{err:.3e} (limit {limit:g}){tiled} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    assert ok, "kernel disagrees with the plain version"
+                    if dtype == torch.bfloat16:
+                        worst[entry] = max(worst[entry], err)
     times = {}
     for name, (sq, sk, d) in (("s3", S3), ("s4", S4)):
         q, k, v = seeded_qkv(rng, 32, sq, sk, d, torch.bfloat16, dev)
-        out = A.fused_attention(q, k, v, "softmax", d ** -0.5)
+        routed = A.kernel_entry(torch.bfloat16, d)
         ref = A.attention_reference(q, k, v, "softmax", d ** -0.5)
-        err = (out.float() - ref.float()).abs().max().item()
-        assert err <= ATOL[torch.bfloat16], f"{name} B=32: {err}"
-        worst_bf16 = max(worst_bf16, err)
-        ms, plain_ms = interleaved_medians(
-            lambda: A.fused_attention(q, k, v, "softmax", d ** -0.5),
-            lambda: A.attention_reference(q, k, v, "softmax", d ** -0.5), 20)
-        flops = 4 * 32 * sq * sk * d
+        for entry in dict.fromkeys((routed, V1_ENTRY)):
+            out = A.fused_attention(q, k, v, "softmax", d ** -0.5, entry=entry)
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= ATOL[torch.bfloat16], f"{entry} {name} B=32: {err}"
+            worst[entry] = max(worst[entry], err)
         # the library's fused attention, timed as a yardstick only
         q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
-        lib_ms = float(np.median(cuda_ms(
+        ms, v1_ms, plain_ms, lib_ms = medians_in_turns([
+            lambda: A.fused_attention(q, k, v, "softmax", d ** -0.5),
+            lambda: A.fused_attention(q, k, v, "softmax", d ** -0.5,
+                                      entry=V1_ENTRY),
+            lambda: A.attention_reference(q, k, v, "softmax", d ** -0.5),
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, scale=d ** -0.5), 20)))
+                q4, k4, v4, scale=d ** -0.5)], 20)
+        # where the routed kernel's time goes: the same products without the
+        # softmax (dot_product), and 5 clips, whose blocks fit the card's SMs
+        # at once (the time of one block)
+        dot_ms, wave_ms = (float(np.median(cuda_ms(fn, 20))) for fn in (
+            lambda: A.fused_attention(q, k, v, "dot_product", d ** -0.5),
+            lambda: A.fused_attention(q[:5], k[:5], v[:5], "softmax",
+                                      d ** -0.5)))
+        flops = 4 * 32 * sq * sk * d
         moved = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-        times[name] = (ms, plain_ms, lib_ms, *bound(moved, flops))
-        log(f"[2 kernel] time {name} B=32 bf16 softmax: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-            f"{times[name][3]:.4f} ms by {times[name][4]}, "
-            f"max_abs_err={err:.3e}")
-    return worst_bf16, times
+        bound_ms, bound_by = bound(moved, flops)
+        times[name] = {"entry": routed, "ms": ms, "v1_ms": v1_ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "dot_product_ms": dot_ms, "five_clips_ms": wave_ms}
+        log(f"[2 kernel] time {name} B=32 bf16 softmax: {routed} {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), {V1_ENTRY} {v1_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}; {routed} "
+            f"dot_product {dot_ms:.4f} ms, softmax on 5 clips {wave_ms:.4f} ms")
+    return worst, times
 
 
 def smoke_cfg(paths, root, preset):
@@ -237,23 +294,27 @@ def phase_main_path(cfg, state_dict, out_dir):
 
     comm = build_comm(cfg)
     timings = []
-    A.LAUNCHES = 0
+    A.reset_launches()
     t0 = time.perf_counter()
     counts = extract_features(
         cfg, comm, state_dict=state_dict, splits=["valid"], out_dir=out_dir,
         batch_size=4, num_threads=8, clip_batch=32, device="cuda",
         timings=timings)
     wall = time.perf_counter() - t0
-    launches = A.LAUNCHES
+    launches, by_entry = A.LAUNCHES, dict(A.LAUNCHES_BY_ENTRY)
     files = sorted(Path(out_dir).glob("*_feats.npy"))
     arrs = [np.load(f) for f in files]
     log(f"[3 main] counts={counts} files={len(files)} dispatches="
-        f"{len(timings)} nl_launches={launches} wall={wall:.2f} s")
+        f"{len(timings)} nl_launches={launches} by entry {by_entry} "
+        f"wall={wall:.2f} s")
     assert counts == {"valid": 8} and len(files) == 8, counts
     assert len(timings) == 2, f"expected 2 dispatches, got {len(timings)}"
     assert all(a.shape == (5, 2048) and a.dtype == np.float32
                and np.isfinite(a).all() for a in arrs), "bad feature files"
     assert launches == 5 * 2, f"NL kernel launches {launches} != 5 x 2"
+    routed = {A.kernel_entry(torch.bfloat16, d) for d in (256, 512)}
+    assert len(routed) == 1 and by_entry[routed.pop()] == launches, (
+        f"launches off the routed entry: {by_entry}")
     # excluding the first dispatch: from its fetch to the second's fetch
     # (the second batch was queued before the first fetch, so the interval
     # is shorter than a whole forward)
@@ -261,7 +322,7 @@ def phase_main_path(cfg, state_dict, out_dir):
     log(f"[3 main] after the first dispatch: {dt * 1e3:.1f} ms to the "
         f"second fetch (32 clips on the device, 8 real) -> {32 / dt:.1f} "
         f"device clips/s, {8 / dt:.1f} real clips/s")
-    return launches
+    return launches, by_entry
 
 
 def phase_paths_agree(cfg, state_dict, dev):
@@ -297,11 +358,15 @@ def phase_paths_agree(cfg, state_dict, dev):
         f"{diff:.4e}, feature scale {scale:.4e}, ratio {diff / scale:.3e} "
         f"(limit {FEATURE_RTOL:g}) {'ok' if ok else 'FAIL'}")
     assert ok, "kernel path and plain path disagree"
-    ms_k, ms_p = interleaved_medians(lambda: run(A.fused_attention),
-                                     lambda: run(A.attention_reference), 5)
-    log(f"[4 paths] i3d_r50_nl_8x8 forward, 32 clips bf16: kernel path "
-        f"{ms_k:.2f} ms = {32e3 / ms_k:.1f} clips/s, plain path {ms_p:.2f} ms"
-        f" = {32e3 / ms_p:.1f} clips/s")
+    v1 = functools.partial(A.fused_attention, entry=V1_ENTRY)
+    ms_k, ms_v1, ms_p = medians_in_turns(
+        [lambda: run(A.fused_attention), lambda: run(v1),
+         lambda: run(A.attention_reference)], 5)
+    log(f"[4 paths] i3d_r50_nl_8x8 forward, 32 clips bf16: routed kernel "
+        f"{ms_k:.2f} ms = {32e3 / ms_k:.1f} clips/s, {V1_ENTRY} forced "
+        f"{ms_v1:.2f} ms = {32e3 / ms_v1:.1f} clips/s, plain attention "
+        f"{ms_p:.2f} ms = {32e3 / ms_p:.1f} clips/s")
+    return {"routed_ms": ms_k, "v1_ms": ms_v1, "plain_ms": ms_p}
 
 
 def phase_default_cfg(paths, root, dev):
@@ -384,9 +449,9 @@ def phase_gather_kernel(dev):
 
         moved = 2 * sum(x.numel() * x.element_size() for x in leaves)
         for calls in (QUEUED, 1):
-            ms, plain_ms = interleaved_medians(
-                queued(B.beam_gather_rows, calls),
-                queued(B.beam_gather_rows_reference, calls), 10)
+            ms, plain_ms = medians_in_turns(
+                [queued(B.beam_gather_rows, calls),
+                 queued(B.beam_gather_rows_reference, calls)], 10)
             ms, plain_ms = ms / calls, plain_ms / calls
             times[(length, calls)] = (ms, plain_ms)
             what = ("device time, calls queued" if calls > 1
@@ -773,8 +838,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    global cuda_ms, interleaved_medians
-    from vidsitu_tpu_torch.timing import cuda_ms, interleaved_medians
+    global cuda_ms, medians_in_turns
+    from vidsitu_tpu_torch.timing import cuda_ms, medians_in_turns
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -788,7 +853,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     phase_build()
-    worst_bf16, times = phase_kernel(dev)
+    attn_err, times = phase_kernel(dev)
     gather_err, gather_times = phase_gather_kernel(dev)
     fused_err, fused_timed, fused_plain_ms = phase_fused_kernel(dev)
     copy_res = phase_copy_probes(dev)
@@ -804,8 +869,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         cfg = smoke_cfg(paths, root, "i3d_r50_nl_8x8")
         state_dict = seeded_state_dict(cfg)
-        launches = phase_main_path(cfg, state_dict, root / "feats")
-        phase_paths_agree(cfg, state_dict, dev)
+        launches, by_entry = phase_main_path(cfg, state_dict, root / "feats")
+        forward_ms = phase_paths_agree(cfg, state_dict, dev)
         sf_model, sf_inp = phase_default_cfg(paths, root, dev)
         # the SRL models read the feature width from the directory's name
         feats_dir = root / "i3d_nl_smoke_feats"
@@ -859,10 +924,17 @@ def main() -> int:
         ("clone", copy_res["clone_gbps"]))}
     copy_bound = bound(copy_bytes, 0)
     log(json.dumps({"kernels": [
-        kernel_row("nl_attn_fwd", "nonlocal_attn.cu",
-                   "vidsitu_tpu/ops/attention.py:61", launches, worst_bf16,
-                   s3[0], s3[1], s3[3], s3[4], s3[2], ms_s4=s4[0],
-                   plain_ms_s4=s4[1], library_ms_s4=s4[2], bound_ms_s4=s4[3]),
+        kernel_row(s3["entry"], "nonlocal_attn.cu",
+                   "vidsitu_tpu/ops/attention.py:61", launches,
+                   attn_err[s3["entry"]], s3["ms"], s3["plain_ms"],
+                   s3["bound_ms"], s3["bound_by"], s3["library_ms"],
+                   ms_s4=s4["ms"], plain_ms_s4=s4["plain_ms"],
+                   library_ms_s4=s4["library_ms"], bound_ms_s4=s4["bound_ms"],
+                   ms_v1=s3["v1_ms"], ms_v1_s4=s4["v1_ms"],
+                   max_abs_err_v1=attn_err[V1_ENTRY],
+                   dot_product_ms=s3["dot_product_ms"],
+                   five_clips_ms=s3["five_clips_ms"],
+                   launches_by_entry=by_entry, forward_ms=forward_ms),
         kernel_row("beam_gather_rows", "beam_gather.cu",
                    "benchmarks/probe_beam_gather.py:62", gather_launches,
                    gather_err, gather_times[0], gather_times[1],

@@ -4,8 +4,10 @@ against the Pallas kernel in interpret mode, on numpy-seeded inputs.
 
 Tolerances are the JAX package's own (tests/test_pallas_attention.py):
 atol 2e-4 in float32, 5e-2 for bfloat16 inputs compared in float32. The
-CUDA kernel itself runs only on a GPU: its test here skips without one, and
-chip_smoke.py holds it against the plain version at the backbone's shapes.
+CUDA kernels themselves run only on a GPU: their tests here skip without one,
+and chip_smoke.py holds both entries against the plain version at the
+backbone's shapes. tests/test_torch_attention_tiled.py holds the wgmma
+kernel's tiled arithmetic and the routing between the entries.
 """
 
 import jax.numpy as jnp
@@ -95,21 +97,52 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (entry, dtype, d): what each entry takes; B = 33 spans more than one wave
+# of neither kernel but exercises gridDim.y, Sq and Sk are ragged against
+# both kernels' tiles
+GPU_CASES = (
+    [("nl_attn_fwd_wgmma", "bfloat16", d) for d in (64, 128, 256, 512)]
+    + [("nl_attn_fwd", "bfloat16", d) for d in (24, 64, 128, 256, 512)]
+    + [("nl_attn_fwd", "float32", d) for d in (24, 64, 128, 256, 512)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 33])
 @pytest.mark.parametrize("kind", ["softmax", "dot_product"])
-@pytest.mark.parametrize("shape", [(2, 200, 200, 128), (2, 784, 196, 512),
-                                   (1, 70, 130, 24)],
-                         ids=lambda s: "x".join(map(str, s)))
-def test_kernel_matches_reference_on_gpu(cuda_device, shape, kind, dtype):
-    arrs = _inputs(3, *shape)
+@pytest.mark.parametrize("entry,dtype,d", GPU_CASES,
+                         ids=lambda x: str(x))
+def test_kernel_matches_reference_on_gpu(cuda_device, entry, dtype, d, kind, b):
+    sq, sk = 70, 130
+    arrs = _inputs(3, b, sq, sk, d)
+    if kind == "dot_product":
+        # keeps one bf16 step of the largest output under the tolerance
+        arrs[0] *= np.float32(0.25)
     q, k, v = (torch.from_numpy(a).to(cuda_device, TORCH_DT[dtype])
                for a in arrs)
-    before = port.LAUNCHES
-    out = port.fused_attention(q, k, v, kind, shape[-1] ** -0.5)
-    ref = port.attention_reference(q, k, v, kind, shape[-1] ** -0.5)
+    port.reset_launches()
+    out = port.fused_attention(q, k, v, kind, d ** -0.5, entry=entry)
+    ref = port.attention_reference(q, k, v, kind, d ** -0.5)
     torch.cuda.synchronize()
-    assert port.LAUNCHES == before + 1 and out.dtype == q.dtype
+    assert port.LAUNCHES == 1 and port.LAUNCHES_BY_ENTRY[entry] == 1
+    assert out.dtype == q.dtype
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(),
                                atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_routing_and_forced_entry_on_gpu(cuda_device):
+    """Unforced calls take the entry ``kernel_entry`` names; the wgmma entry
+    refuses what it does not take instead of handing it on."""
+    port.reset_launches()
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 256),
+                     (torch.bfloat16, 24)):
+        q = torch.zeros(2, 40, d, device=cuda_device, dtype=dtype)
+        port.fused_attention(q, q, q, "softmax")
+    torch.cuda.synchronize()
+    assert port.LAUNCHES_BY_ENTRY == {"nl_attn_fwd_wgmma": 1, "nl_attn_fwd": 2}
+    for dtype, d in ((torch.float32, 256), (torch.bfloat16, 24)):
+        q = torch.zeros(2, 40, d, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="nl_attn_fwd_wgmma takes"):
+            port.fused_attention(q, q, q, "softmax", entry="nl_attn_fwd_wgmma")
+    assert port.LAUNCHES == 3

@@ -1,4 +1,7 @@
-// Non-local attention forward for NVIDIA Hopper (sm_90a).
+// Non-local attention forward for NVIDIA Hopper (sm_90a). Two kernels: the
+// wmma / float32 one first (nl_attn_fwd), then the wgmma one
+// (nl_attn_fwd_wgmma, with its own note), which takes bf16 at d in {64, 128,
+// 256, 512}. ops/attention.py picks the entry from dtype and d.
 //
 // Replaces the TPU kernel vidsitu_tpu/ops/attention.py:30 _fused_attn_kernel
 // (reached through fused_attention, :61). Computes, for each batch b,
@@ -28,10 +31,13 @@
 //    shared memory, above 48 KB, hence cudaFuncSetAttribute;
 //  * float32 inputs take the same tiling with plain FMA (full float32, no
 //    TF32), for the reference-precision path.
-// Left for later: wgmma/TMA, a K/V double buffer and register accumulators.
+// This kernel stays as the float32 parity instantiation and for head widths
+// the wgmma kernel does not take. wgmma, a K/V ring filled ahead of the
+// products and register accumulators are in nl_attn_fwd_wgmma, further down;
+// left for later in both: the backward.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// C entry: nl_attn_fwd (bottom of file), returns cudaGetLastError().
+// C entry: nl_attn_fwd (after this kernel), returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -414,4 +420,620 @@ extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const int softmax = kind == 0;
   return (int)(is_bf16 ? launch_d<bf16>(q, k, v, o, b, sq, sk, d, softmax, scale, s)
                        : launch_d<float>(q, k, v, o, b, sq, sk, d, softmax, scale, s));
+}
+
+// ===========================================================================
+// nl_attn_fwd_wgmma: the same function, redesigned for Hopper's warpgroup
+// tensor-core instruction. bf16 only, d in {64, 128, 256, 512}.
+//
+// Replaces the same TPU kernel (vidsitu_tpu/ops/attention.py:30, reached
+// through fused_attention, :61). Bound by operations, as above: 630 FLOP per
+// byte at stage 3 against the card's 295, so what counts is how much of the
+// time the tensor cores run, and how little else the SM does per key tile.
+//
+// What the design does about it:
+//  * both products are wgmma.mma_async (m64nNk16, bf16 in, float32 out).
+//    S = Q K^T reads Q and the K tile from shared memory in the 128-byte
+//    swizzled K-major layout; O += P V takes P from registers (the S
+//    accumulator's own layout, packed to bf16 in place) and the V tile from
+//    shared memory as an MN-major B operand (the transpose flag of the
+//    instruction: V stays keys x d, as it lies in device memory);
+//  * O (64 x up to 256 float32 = 128 registers a thread), the running max
+//    and the running sum live in registers. A row of the accumulator is
+//    shared by four lanes, so the row max is two shuffles; the rescale by
+//    exp2(m_old - m_new) multiplies registers. No logits, probabilities or
+//    statistics pass through shared memory;
+//  * K and V tiles arrive in a two-slot ring filled with cp.async by the
+//    computing threads one tile ahead: the loads of tile t+1 are issued
+//    right after tile t's S product, while the tensor cores work on it, and
+//    land during tile t; one __syncthreads a tile. (TMA with a producer warp
+//    is the other way to fill the ring; cp.async needs no tensor map
+//    (cuTensorMapEncodeTiled) and writes the swizzle itself.)
+//  * two warpgroups a block. Up to d = 256 each owns 64 of the block's 128
+//    query rows and both share every K/V tile (half the L2 traffic). At
+//    d = 512 the accumulator of 64 rows does not fit one warpgroup's
+//    registers, so both own the same 64 rows and 256 output columns each;
+//    both compute the whole S (the first product doubles: 1.5x the work, no
+//    exchange between them). Where they own different rows they take turns
+//    at the S product (named barriers), so that one group's softmax runs
+//    under the other's products;
+//  * key tiles sized to the real key counts: 80 keys up to d = 256
+//    (784 = 10 x 80 - 16), 32 at d = 512 (196 = 7 x 32 - 28);
+//  * exp2 with scale * log2(e) folded into one factor; dot_product skips the
+//    softmax and multiplies S by 1 / Sk before the bf16 conversion;
+//  * the epilogue divides by the row sum in registers and stores bf16 through
+//    shared memory (the dead Q and ring space) with 16-byte stores.
+// Left for later: the backward; TMA loads from a producer warp, which would
+// free the registers for a second S accumulator (the next tile's S product
+// under this tile's softmax, within one warpgroup).
+//
+// C entry: nl_attn_fwd_wgmma (bottom of file), returns cudaGetLastError().
+
+namespace wg {
+
+constexpr int kSmemLimit = 232448;  // bytes a block can use on sm_90
+constexpr int kSmemAlign = 1024;    // a swizzled tile starts on 1024 bytes
+constexpr int kStages = 2;          // slots of the K/V ring
+constexpr int kBlockK = 80;         // keys per tile, d <= kSplitAbove
+constexpr int kBlockKSplit = 32;    // keys per tile, d > kSplitAbove
+constexpr int kSplitAbove = 256;    // widest d one warpgroup accumulates
+constexpr int kRowsPerGroup = 64;   // query rows of one warpgroup (wgmma M)
+constexpr int kGroups = 2;          // consumer warpgroups a block
+constexpr int kThreads = 128 * kGroups;
+
+// Shared-memory budget of one block for head width D.
+template <int D>
+struct Cfg {
+  static constexpr bool kSplit = D > kSplitAbove;
+  static constexpr int BK = kSplit ? kBlockKSplit : kBlockK;
+  static constexpr int QROWS = kSplit ? kRowsPerGroup : kGroups * kRowsPerGroup;
+  static constexpr int NO = kSplit ? D / kGroups : D;  // O columns a warpgroup
+  static constexpr int kQBytes = QROWS * D * 2;
+  static constexpr int kTileBytes = BK * D * 2;        // one K or one V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;   // K then V
+  static constexpr int kBytes = kSmemAlign + kQBytes + kStages * kStageBytes;
+  static constexpr int LDO = D * 2 + 16;  // epilogue row pitch, bytes
+  static_assert(kBytes <= kSmemLimit, "tiles exceed the SM's shared memory");
+  static_assert(QROWS * LDO <= kQBytes + kStages * kStageBytes,
+                "the epilogue's staging must fit in the dead tiles");
+  static_assert(BK % 16 == 0 && D % 64 == 0 && NO <= 256, "wgmma shapes");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// make the landed tiles visible to the tensor cores' (async-proxy) reads
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// named barriers (id 0 is __syncthreads): sync waits for n threads to have
+// arrived or synced on the id, arrive does not wait
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// keep the compiler from moving uses of an accumulator across a fence/wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;  // ex2(-inf) = +0
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo: low 16 bits
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets in bytes:
+// K-major operand: sbo = stride between groups of 8 rows, lbo unused;
+// MN-major operand: lbo = stride between blocks of 64 columns (MN), sbo =
+// stride between groups of 8 rows (K).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D(64 x N) (+)= A(64 x 16) B(16 x N): A and B from shared memory, both
+// K-major (B is the K tile: N keys x 16 of d).
+template <int N>
+struct MmaSS;
+// The same with A from registers and B MN-major (the V tile: 16 keys x N).
+template <int N>
+struct MmaRS;
+
+template <>
+struct MmaSS<80> {
+  static __device__ __forceinline__ void run(float (&d)[40], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39 "
+      "}, %40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaSS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaRS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaRS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaRS<256> {
+  static __device__ __forceinline__ void run(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// Rows [row0, row0 + ROWS) of a (nrows, D) row-major bf16 matrix into a
+// swizzled tile: D / 64 column blocks of ROWS x 128 bytes, the 16-byte chunk
+// c of row r stored at chunk c ^ (r % 8). Rows past nrows are zero-filled.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
+                                                int row0, int nrows) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  constexpr int STEPS = (ROWS * CPR + kThreads - 1) / kThreads;
+#pragma unroll
+  for (int it = 0; it < STEPS; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    if (ROWS * CPR % kThreads != 0 && i >= ROWS * CPR) break;
+    const int r = i / CPR;
+    const int c = i % CPR;
+    const bool ok = row0 + r < nrows;
+    const bf16* g = src + (size_t)(ok ? row0 + r : 0) * D + c * 8;
+    const uint32_t s =
+        dst + (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+    cp_async16(s, g, ok ? 16 : 0);
+  }
+}
+
+// One ring slot: the K tile, then the V tile, of keys [key0, key0 + BK), as
+// one cp.async group (with whatever this thread issued before it).
+template <int D>
+__device__ __forceinline__ void load_kv_async(uint32_t slot, const bf16* kb,
+                                              const bf16* vb, int key0,
+                                              int sk) {
+  using C = Cfg<D>;
+  load_tile_async<C::BK, D>(slot, kb, key0, sk);
+  load_tile_async<C::BK, D>(slot + C::kTileBytes, vb, key0, sk);
+  cp_async_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         int sq, int sk, int softmax, float scale) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  constexpr int NO = C::NO;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + kSmemAlign - 1) & ~(uint32_t)(kSmemAlign - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sRing = base + C::kQBytes;
+
+  const int group = threadIdx.x / 128;        // warpgroup
+  const int warp = (threadIdx.x % 128) / 32;  // warp of the warpgroup
+  const int lane = threadIdx.x % 32;
+  const int quad = lane & 3;
+  const int q0 = blockIdx.x * C::QROWS;       // first query row of the block
+  const int grow = C::kSplit ? 0 : kRowsPerGroup * group;  // group's rows
+  const int col0 = C::kSplit ? NO * group : 0;             // group's columns
+  const size_t b = blockIdx.y;
+  const bf16* qb = q + b * sq * D;
+  const bf16* kb = k + b * sk * D;
+  const bf16* vb = v + b * sk * D;
+  // a warpgroup whose rows all lie past Sq loads its share and computes nothing
+  const bool active = q0 + grow < sq;
+
+  load_tile_async<C::QROWS, D>(sQ, qb, q0, sq);
+  load_kv_async<D>(sRing, kb, vb, 0, sk);  // one group with Q
+
+  float acc[NO / 2];  // O: rows r and r + 8 of this lane, see the epilogue
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
+  float l_run[2] = {0.f, 0.f};              // this lane's share of the row sum
+  const float c2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  const float inv_sk = 1.f / (float)sk;
+
+  // Where the two warpgroups own different rows they take turns at the first
+  // product: group 0 issues its S, then group 1 its own while group 0 does
+  // its softmax, and so on, so that one group's softmax runs under the
+  // other's products. A turn is a named barrier (1 + group) that the other
+  // group arrives on. No turns when group 1 has no rows (the last block of a
+  // batch), nor at d = 512, where they measured slower.
+  const bool turns = !C::kSplit && q0 + kRowsPerGroup < sq;
+  if (turns && group == 1) bar_arrive(1, kThreads);
+
+  const int n_tiles = (sk + BK - 1) / BK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = t * BK;
+    const uint32_t sK = sRing + (t % kStages) * C::kStageBytes;
+    const uint32_t sV = sK + C::kTileBytes;
+    cp_async_wait_all();  // tile t (and Q) have landed, this thread's part
+    fence_async_proxy();
+    __syncthreads();      // everyone's part; and tile t-1 is no longer read
+    const bool more = t + 1 < n_tiles;
+    const uint32_t nK = sRing + ((t + 1) % kStages) * C::kStageBytes;
+    if (!active) {
+      if (more) load_kv_async<D>(nK, kb, vb, key0 + BK, sk);
+      continue;
+    }
+
+    // S = Q K^T, 64 x BK, one wgmma for every 16 of d
+    float s[BK / 2];
+    if (turns) bar_sync(1 + group, kThreads);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * 128 * C::QROWS + (kk & 3) * 32;
+      const uint32_t koff = (kk >> 2) * 128 * BK + (kk & 3) * 32;
+      MmaSS<BK>::run(s, smem_desc(sQ + grow * 128 + off, 16, 1024),
+                     smem_desc(sK + koff, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    if (turns) bar_arrive(1 + (group ^ 1), kThreads);
+    // the next tile's loads are issued while the tensor cores work on S
+    if (more) load_kv_async<D>(nK, kb, vb, key0 + BK, sk);
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // s[4j + e] is row r, s[4j + 2 + e] row r + 8, key key0 + 8j + 2 quad + e
+    const bool tail = key0 + BK > sk;
+    if (softmax) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool past = tail && key0 + 8 * j + 2 * quad + e >= sk;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float x = past ? -INFINITY : s[4 * j + 2 * h + e] * c2;
+            s[4 * j + 2 * h + e] = x;
+            mx[h] = fmaxf(mx[h], x);
+          }
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        // every tile holds a real key, so m_new is finite; the first tile
+        // has m_run = -inf: alpha is 0 there, not exp2(-inf - -inf)
+        const float m_new = fmaxf(m_run[h], mx[h]);
+        alpha[h] = m_run[h] == -INFINITY ? 0.f : fast_exp2(m_run[h] - m_new);
+        m_run[h] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = fast_exp2(s[4 * j + 2 * h + e] - m_run[h]);
+            s[4 * j + 2 * h + e] = p;
+            sum[h] += p;
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * alpha[h] + sum[h];
+#pragma unroll
+      for (int j = 0; j < NO / 8; ++j) {
+        acc[4 * j + 0] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool past = tail && key0 + 8 * j + 2 * quad + e >= sk;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            s[4 * j + 2 * h + e] = past ? 0.f : s[4 * j + 2 * h + e] * inv_sk;
+          }
+        }
+      }
+    }
+
+    // O += P V: P as the A operand, 16 keys a step (S's accumulator layout
+    // is the A layout, 8 accumulator values for every 4 packed registers)
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[8 * kk + 0], s[8 * kk + 1]),
+                              pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                              pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                              pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      MmaRS<NO>::run(acc, pa,
+                     smem_desc(sV + (col0 / 64) * 128 * BK + kk * 2048,
+                               128 * BK, 1024),
+                     1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+
+  // Epilogue: divide by the row sum, stage bf16 rows in shared memory (Q and
+  // the ring are dead), store 16 bytes a thread; rows past Sq are not stored.
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float inv = 1.f;
+      if (softmax) {
+        float l = l_run[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv = 1.f / l;
+      }
+      unsigned char* row =
+          smem + (size_t)(grow + 16 * warp + (lane >> 2) + 8 * h) * C::LDO;
+#pragma unroll
+      for (int j = 0; j < NO / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(row + (col0 + 8 * j + 2 * quad) * 2) =
+            pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+      }
+    }
+  }
+  __syncthreads();
+  constexpr int CPR = D / 8;
+  for (int i = threadIdx.x; i < C::QROWS * CPR; i += kThreads) {
+    const int r = i / CPR;
+    const int c = i % CPR;
+    if (q0 + r < sq) {
+      *reinterpret_cast<uint4*>(o + (b * sq + q0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + (size_t)r * C::LDO + c * 16);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
+                   int sq, int sk, int softmax, float scale,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      nl_attn_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + C::QROWS - 1) / C::QROWS, b);
+  nl_attn_fwd_wgmma_kernel<D><<<grid, kThreads, C::kBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, softmax,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// The wgmma kernel: bf16 only. q, k, v, o: device pointers (16-byte aligned,
+// contiguous). kind: 0 softmax, 1 dot_product. Requires d in {64, 128, 256,
+// 512}, sk >= 1, 1 <= b <= 65535; anything else is cudaErrorInvalidValue.
+extern "C" int nl_attn_fwd_wgmma(const void* q, const void* k, const void* v,
+                                 void* o, int b, int sq, int sk, int d,
+                                 int kind, float scale, void* stream) {
+  if (b < 1 || b > 65535 || sq < 0 || sk < 1 || (kind != 0 && kind != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (sq == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int softmax = kind == 0;
+  switch (d) {
+    case 64: return (int)wg::launch<64>(q, k, v, o, b, sq, sk, softmax, scale, s);
+    case 128: return (int)wg::launch<128>(q, k, v, o, b, sq, sk, softmax, scale, s);
+    case 256: return (int)wg::launch<256>(q, k, v, o, b, sq, sk, softmax, scale, s);
+    case 512: return (int)wg::launch<512>(q, k, v, o, b, sq, sk, softmax, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

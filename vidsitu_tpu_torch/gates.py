@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .extract import resolve_device
-from .timing import cuda_ms, interleaved_medians
+from .timing import cuda_ms, medians_in_turns
 
 COPY_SHAPE = (6144, 65536)  # bf16: 768 MB
 # block shapes (rows, columns) of the staged copy that fit a thread block's
@@ -177,8 +177,8 @@ def gate_fused_bottleneck(dev: torch.device, reps: int = 5) -> Dict:
         for name, fn in kernels.items():
             err = (fn().float() - want).abs().max().item()
             assert err <= 5e-2 * scale, (name, n_frames, err, scale)
-            times[name], times["unfused_vs_" + name] = interleaved_medians(
-                fn, unfused, reps)
+            times[name], times["unfused_vs_" + name] = medians_in_turns(
+                [fn, unfused], reps)
         unfused_ms = float(np.median(
             [times.pop("unfused_vs_" + name) for name in kernels]))
         moved = (frames.numel() + want.numel()) * frames.element_size()

@@ -74,15 +74,13 @@ def build(name: str) -> Path:
 
 @functools.cache
 def load_nonlocal_attn() -> ctypes.CDLL:
-    """The non-local attention library, built on first call."""
+    """The non-local attention library (both entries), built on first call."""
     lib = ctypes.CDLL(str(build("nonlocal_attn")))
-    fn = lib.nl_attn_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    shared = [ptr] * 4 + [i32] * 5 + [ctypes.c_float]
+    lib.nl_attn_fwd.argtypes = shared + [i32, ptr]  # is_bf16, stream
+    lib.nl_attn_fwd_wgmma.argtypes = shared + [ptr]
+    lib.nl_attn_fwd.restype = lib.nl_attn_fwd_wgmma.restype = i32
     return lib
 
 

@@ -4,7 +4,7 @@ calls, one warm-up, medians; compared functions are timed in turns."""
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
@@ -26,13 +26,15 @@ def cuda_ms(fn: Callable[[], object], reps: int) -> List[float]:
     return times
 
 
-def interleaved_medians(fn_a, fn_b, reps: int) -> Tuple[float, float]:
-    """Median ms of two functions timed in turns a, b, b, a."""
-    times = {fn_a: [], fn_b: []}
-    for pair in ((fn_a, fn_b), (fn_b, fn_a)):
-        for fn in pair:
-            times[fn].extend(cuda_ms(fn, reps))
-    return float(np.median(times[fn_a])), float(np.median(times[fn_b]))
+def medians_in_turns(fns: Sequence[Callable[[], object]],
+                     reps: int) -> List[float]:
+    """Median ms of each function, timed in turns: once down the list, then
+    once back up (a, b, c, c, b, a)."""
+    times: List[List[float]] = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in order + order[::-1]:
+        times[i].extend(cuda_ms(fns[i], reps))
+    return [float(np.median(t)) for t in times]
 
 
 def call_ms(fn: Callable[[], object], reps: int, device) -> List[float]:
