@@ -55,19 +55,27 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    plus the 23 role/separator tokens and pad), beam 5, both routes, timed;
 11. build: the fused inference bottleneck and the copy probes (built with
    phase 1's and phase 6's, four nvcc processes started together);
-12. kernel vs plain: the fused bottleneck's two entry points (one block per
-   tile and frame; several frames per block with resident weights) against
-   the plain version in float32 (atol 2e-4) and bf16 (5e-2 of the output
-   scale) at slow-s2 with projection (56x56, 80->64->256), slow-s2 without
-   (256/64/256), slow-s3 (28x28, 512/128/512) and a ragged one (7x9,
-   24->16->32, with projection), seeded non-zero shifts; then timed in turns
-   against the unfused chain (``Bottleneck.forward``, bf16, channels-last)
-   at 256 and 960 frames, and the plain version timed at 256;
+12. kernel vs plain: the fused bottleneck's four C entries (the kernel
+   designed for Hopper: wgmma, persistent blocks, resident weights, behind
+   both wrappers; the first kernel: one block per tile and frame, or several
+   frames per block), routed and forced, against the plain version in
+   float32 (atol 2e-4) and bf16 (5e-2 of the output scale) at slow-s2 with
+   projection (56x56, 80->64->256), slow-s2 without (256/64/256), slow-s3
+   (28x28, 512/128/512) and a ragged one (7x9, 24->16->32, with projection),
+   seeded non-zero shifts; the wgmma entries also against the plain version
+   that repeats their walk, and 67 frames in groups of 1, 2, 3 and 7 (more
+   steps than blocks, runs that cross groups); the two shapes that stay on
+   the first kernel timed at 256 frames; then the routed entries, the first kernel's
+   entries forced and the unfused chain (``Bottleneck.forward``, bf16,
+   channels-last) timed in turns at 256 and 960 frames, three ``F.conv2d``
+   on the folded weights as a second library yardstick, the routed kernel
+   with calls queued back to back, and the plain version timed at 256;
 13. this slice's model path at full width: one forward of the seeded
    SlowFast R50 8x8 (phase 5's model) on 8 clips in bf16 with hooks on the
    six eligible slow-pathway blocks (s2 blocks 0-2, s3 blocks 1-3);
    ``run_fused_block`` on each captured input equals the captured output
-   within 2e-2 of its scale; six kernel launches;
+   within 2e-2 of its scale; six kernel launches, s2 blocks 1-2 on the
+   wgmma entry, the others on the first kernel's;
 14. the copy probes bit-identical to their input on a 768 MB bf16 tensor,
    at every block shape, the TPU probe's VMEM-sized blocks refused; GB/s of
    each beside ``clone()`` and one elementwise op;
@@ -119,8 +127,15 @@ FB_SHAPES = {
     "ragged proj": (7, 9, 24, 16, 32, True),
 }
 FB_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # bf16: of the scale
+FB_FRAMES_TPU = "benchmarks/probe_fused_bottleneck.py:108"
+FB_MULTI_TPU = "benchmarks/micro4.py:84"
 FUSED_BLOCKS = ("s2_slow.block_0", "s2_slow.block_1", "s2_slow.block_2",
                 "s3_slow.block_1", "s3_slow.block_2", "s3_slow.block_3")
+# the C entry each takes: the wgmma kernel at 256 -> 64 -> 256; s2 block 0
+# (projection from 80 channels) and s3 (Cmid 128) stay on the first kernel
+FUSED_BLOCK_ENTRY = {name: "fused_bottleneck_frames" + (
+    "_wgmma" if name in ("s2_slow.block_1", "s2_slow.block_2") else "")
+    for name in FUSED_BLOCKS}
 # SRL decode at beam 5: 16 segments x 5 events x 5 beams, 3 decoder layers
 BEAM, EVENTS, HEADS, HEAD_DIM, LAYERS = 5, 80, 8, 128, 3
 SELF_LENS = (65, 129, 201)  # the segmented cache: 64, 128, then 200 + 1
@@ -702,13 +717,40 @@ def fb_operands(rng, cin, cmid, cout, proj, dtype, dev):
     return ops + ([weight(cin, cout), shift(cout)] if proj else [None, None])
 
 
+def folded_chain(x, wa, ba, wb, bb, wc, bc):
+    """The library yardstick on the folded weights: three ``F.conv2d`` calls
+    (cuDNN, bf16, channels-last) with shift, relu and the identity residual
+    as elementwise calls. ``x`` (B, H, W, C) frames; timed only, the port
+    never calls it."""
+    from torch.nn.functional import conv2d
+
+    def oihw(w_hwio):
+        return w_hwio.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    wa4, wb4, wc4 = oihw(wa[None, None]), oihw(wb), oihw(wc[None, None])
+    sa, sb, sc = (t.to(x.dtype).reshape(1, -1, 1, 1) for t in (ba, bb, bc))
+    xn = x.permute(0, 3, 1, 2)  # NCHW view of channels-last memory
+
+    def run():
+        h = conv2d(xn, wa4).add_(sa).relu_()
+        h = conv2d(h, wb4, padding=1).add_(sb).relu_()
+        return conv2d(h, wc4).add_(sc).add_(xn).relu_()
+
+    return run
+
+
 def phase_fused_kernel(dev):
-    """Phase 12: both entry points against the plain version, then timed."""
+    """Phase 12: every entry point, routed and forced, against the plain
+    version (the wgmma entries also against the plain version that repeats
+    their walk), then timed."""
     from vidsitu_tpu_torch import gates
     from vidsitu_tpu_torch.ops import fused_bottleneck as FB
 
     rng = np.random.default_rng(12)
-    worst = {"frames": 0.0, "multi": 0.0}
+    worst = {name: 0.0 for name in FB.LAUNCHES_BY_ENTRY}  # bf16, by C entry
+    frames_v1, multi_v1 = (FB.ENTRIES[name][1] for name in (
+        "fused_bottleneck_frames", "fused_bottleneck_multi"))
     for name, (h, w, cin, cmid, cout, proj) in FB_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             ops = fb_operands(rng, cin, cmid, cout, proj, dtype, dev)
@@ -717,44 +759,130 @@ def phase_fused_kernel(dev):
             want = FB.fused_bottleneck_plain(x, *ops).float()
             scale = want.abs().max().item()
             limit = FB_TOL[dtype] * (scale if dtype == torch.bfloat16 else 1.0)
-            runs = {"frames": lambda: FB.fused_bottleneck_frames(x, *ops)}
+            # (C entry, frames per step) -> run; the routed entry first, then
+            # the first kernel's where the routed one is another
+            runs = {}
+            for entry in dict.fromkeys((FB.kernel_entry(
+                    dtype, cin, cmid, cout, proj, w), frames_v1)):
+                runs[entry, 1] = lambda entry=entry: (
+                    FB.fused_bottleneck_frames(x, *ops, entry=entry))
             if not proj:
-                for fps in (2, 4):
-                    runs[f"multi fps={fps}"] = (
-                        lambda fps=fps: FB.fused_bottleneck_multi(
-                            x, *ops[:6], frames_per_step=fps))
-            for entry, fn in runs.items():
+                for entry in dict.fromkeys((FB.kernel_entry(
+                        dtype, cin, cmid, cout, proj, w, multi=True),
+                        multi_v1)):
+                    for fps in (2, 4):
+                        runs[entry, fps] = lambda entry=entry, fps=fps: (
+                            FB.fused_bottleneck_multi(
+                                x, *ops[:6], frames_per_step=fps, entry=entry))
+            for (entry, fps), fn in runs.items():
                 got = fn()
                 torch.cuda.synchronize()
                 err = (got.float() - want).abs().max().item()
                 ok = got.shape == want.shape and got.dtype == dtype and (
                     err <= limit)
-                staged = (f" staged(wa,wb,wc)={FB.LAST_STAGED}"
-                          if entry != "frames" else "")
+                more = ""
+                if entry.endswith("_wgmma"):
+                    tiled = FB.fused_bottleneck_tiled_reference(
+                        x, *ops, frames_per_step=fps).float()
+                    err_t = (got.float() - tiled).abs().max().item()
+                    more = f" vs tiled plain {err_t:.3e}"
+                    ok = ok and err_t <= limit
+                elif entry == multi_v1:
+                    more = f" staged(wa,wb,wc)={FB.LAST_STAGED}"
                 log(f"[12 fused] {name} 8x{h}x{w} {cin}->{cmid}->{cout} "
-                    f"{str(dtype)[6:]} {entry}: max_abs_err={err:.3e} (limit "
-                    f"{limit:.3e}, scale {scale:.3f}){staged} "
+                    f"{str(dtype)[6:]} {entry} fps={fps}: max_abs_err="
+                    f"{err:.3e} (limit {limit:.3e}, scale {scale:.3f}){more} "
                     f"{'ok' if ok else 'FAIL'}")
                 assert ok, "fused bottleneck disagrees with the plain version"
                 if dtype == torch.bfloat16:
-                    key = "frames" if entry == "frames" else "multi"
-                    worst[key] = max(worst[key], err)
+                    worst[entry] = max(worst[entry], err)
+    # the wgmma kernel's walk with more steps than blocks: every block's run
+    # crosses from one group of frames into the next (an odd number of steps
+    # a group at 2 and 3 frames) and most runs start inside a group
+    h, w, cin, cmid, cout, _ = FB_SHAPES["slow-s2"]
+    ops = fb_operands(rng, cin, cmid, cout, False, torch.bfloat16, dev)
+    x = torch.from_numpy(rng.standard_normal((67, h, w, cin)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    want = FB.fused_bottleneck_plain(x, *ops).float()
+    limit = FB_TOL[torch.bfloat16] * want.abs().max().item()
+    entry = FB.ENTRIES["fused_bottleneck_multi"][0]
+    for fps in (1, 2, 3, 7):
+        errs = []
+        for _ in range(3):  # a race would show in some launches only
+            got = FB.fused_bottleneck_multi(x, *ops[:6], frames_per_step=fps)
+            assert FB.LAUNCHES_BY_ENTRY[entry] > 0
+            torch.cuda.synchronize()
+            errs.append((got.float() - want).abs().max().item())
+        ok = max(errs) <= limit
+        log(f"[12 fused] slow-s2 67 frames bf16 {entry} fps={fps} x3: "
+            f"max_abs_err={max(errs):.3e} (limit {limit:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        assert ok, "the wgmma kernel's walk disagrees with the plain version"
+        worst[entry] = max(worst[entry], *errs)
+    del x, want
+    # the two block shapes that stay on the first kernel, timed at 256 frames
+    others = {}
+    for name in ("slow-s2 proj", "slow-s3"):
+        h, w, cin, cmid, cout, proj = FB_SHAPES[name]
+        ops = fb_operands(rng, cin, cmid, cout, proj, torch.bfloat16, dev)
+        x = torch.randn((256, h, w, cin), device=dev).to(torch.bfloat16)
+        ms = float(np.median(cuda_ms(
+            lambda: FB.fused_bottleneck_frames(x, *ops), 5)))
+        flops = 2 * 256 * h * w * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                                   + (cin * cout if proj else 0))
+        bound_ms, bound_by = bound(2 * 256 * h * w * (cin + cout), flops)
+        entry = FB.kernel_entry(torch.bfloat16, cin, cmid, cout, proj, w)
+        log(f"[12 fused] {name} 256 frames bf16 on {entry}: {ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by}")
+        others[name] = {"entry": entry, "ms": ms, "bound_ms": bound_ms}
+        del x
     timed = gates.gate_fused_bottleneck(dev)
-    # the plain version at the gate's 256 frames (float32 convs on the bf16
-    # operands: it repeats the kernel's arithmetic, it is no yardstick)
+    timed["others"] = others
+    # beside the gate's unfused chain (the model's block, BatchNorm unfolded):
+    # the library on the folded weights, the routed kernel with calls queued
+    # back to back (device time without the wrapper's host time), and the
+    # plain version at 256 frames (float32 convs on the bf16 operands: it
+    # repeats the kernel's arithmetic, it is no yardstick)
     block = gates.s2_block(dev)
     folded = FB.fold_bottleneck(block, torch.bfloat16)
-    x = torch.randn((256, 56, 56, 256), device=dev).to(torch.bfloat16)
-    plain_ms = float(np.median(cuda_ms(
-        lambda: FB.fused_bottleneck_plain(x, *folded), 3)))
-    log(f"[12 fused] plain version, slow-s2 256 frames bf16: {plain_ms:.3f} ms")
+    for n_frames in gates.FRAME_COUNTS:
+        x = torch.randn((n_frames, 56, 56, 256), device=dev).to(torch.bfloat16)
+        chain = folded_chain(x, *folded[:6])
+        want = FB.fused_bottleneck_plain(x[:8], *folded).float()
+        err = (chain()[:8].permute(0, 2, 3, 1).float() - want).abs().max()
+        assert err.item() <= FB_TOL[torch.bfloat16] * want.abs().max().item()
+
+        def queued(fn):
+            return lambda: [fn() for _ in range(QUEUED)]
+
+        ms, chain_ms, q_frames, q_multi4, q_chain = medians_in_turns([
+            lambda: FB.fused_bottleneck_frames(x, *folded), chain,
+            queued(lambda: FB.fused_bottleneck_frames(x, *folded)),
+            queued(lambda: FB.fused_bottleneck_multi(
+                x, *folded[:6], frames_per_step=4)),
+            queued(chain)], 5)
+        timed[str(n_frames)].update(
+            folded_library_ms=chain_ms, frames_queued_ms=q_frames / QUEUED,
+            multi4_queued_ms=q_multi4 / QUEUED,
+            folded_library_queued_ms=q_chain / QUEUED)
+        log(f"[12 fused] slow-s2 {n_frames} frames bf16: routed frames entry "
+            f"{ms:.3f} ms a call, {q_frames / QUEUED:.3f} ms queued x{QUEUED}"
+            f" | multi fps=4 queued {q_multi4 / QUEUED:.3f} | three conv2d on "
+            f"the folded weights + elementwise {chain_ms:.3f} ms a call, "
+            f"{q_chain / QUEUED:.3f} queued")
+        if n_frames == 256:
+            plain_ms = float(np.median(cuda_ms(
+                lambda: FB.fused_bottleneck_plain(x, *folded), 3)))
+            log(f"[12 fused] plain version, slow-s2 256 frames bf16: "
+                f"{plain_ms:.3f} ms")
+        del x, chain
     return worst, timed, plain_ms
 
 
 def phase_fused_in_model(model, inp, dev):
     """Phase 13: the fused block on the six eligible slow-pathway blocks'
     real inputs, captured in one SlowFast forward, against the blocks' own
-    outputs."""
+    outputs; which C entry each block took."""
     from vidsitu_tpu_torch.ops import fused_bottleneck as FB
 
     blocks = dict(model.backbone.named_modules())
@@ -773,17 +901,20 @@ def phase_fused_in_model(model, inp, dev):
     for name in FUSED_BLOCKS:
         x, want = captured[name]
         want = want.permute(0, 2, 3, 4, 1).float()
+        by_entry = dict(FB.LAUNCHES_BY_ENTRY)
         got = FB.run_fused_block(blocks[name], x.permute(0, 2, 3, 4, 1),
                                  dtype=torch.bfloat16).float()
         torch.cuda.synchronize()
+        took = [e for e, n in FB.LAUNCHES_BY_ENTRY.items() if n != by_entry[e]]
         scale = want.abs().max().item()
         err = (got - want).abs().max().item()
         ok = got.shape == want.shape and err <= FEATURE_RTOL * scale
-        log(f"[13 model] {name} {tuple(x.shape)} -> {tuple(want.shape)}: "
-            f"fused vs the block's output max_abs_diff={err:.4e}, scale "
-            f"{scale:.4e}, ratio {err / scale:.3e} (limit {FEATURE_RTOL:g}) "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"[13 model] {name} {tuple(x.shape)} -> {tuple(want.shape)} on "
+            f"{took}: fused vs the block's output max_abs_diff={err:.4e}, "
+            f"scale {scale:.4e}, ratio {err / scale:.3e} (limit "
+            f"{FEATURE_RTOL:g}) {'ok' if ok else 'FAIL'}")
         assert ok, f"fused block disagrees with {name}"
+        assert took == [FUSED_BLOCK_ENTRY[name]], (name, took)
         worst = max(worst, err / scale)
     launches = FB.LAUNCHES["fused_bottleneck_frames"] - before
     assert launches == len(FUSED_BLOCKS), launches
@@ -893,8 +1024,9 @@ def main() -> int:
     del sf_model, sf_inp
     torch.cuda.empty_cache()
     gates_res, featext, decode = phase_bench(dev)
-    slice_launches = {**FB.LAUNCHES, **CP.LAUNCHES,
+    slice_launches = {**FB.LAUNCHES_BY_ENTRY, **CP.LAUNCHES,
                       "beam_gather_rows": B.LAUNCHES}
+    assert sum(FB.LAUNCHES.values()) == sum(FB.LAUNCHES_BY_ENTRY.values())
     log(f"[15 bench] kernel launches on this slice's path: {slice_launches}")
     assert all(n > 0 for n in slice_launches.values()), slice_launches
 
@@ -913,6 +1045,10 @@ def main() -> int:
     s3, s4 = times["s3"], times["s4"]
     # fused bottleneck at the gate's 256 frames of 56x56, 256/64/256, bf16
     fb256, fb960 = fused_timed["256"], fused_timed["960"]
+    fb_others = fused_timed["others"]
+    for fb in (fb256, fb960):  # the multi wrapper: the better of 2 / 4 frames
+        fb["multi_ms"] = min(fb["multi2_ms"], fb["multi4_ms"])
+        fb["multi_v1_ms"] = min(fb["multi2_v1_ms"], fb["multi4_v1_ms"])
     fb_ops = 2 * 56 * 56 * (256 * 64 + 9 * 64 * 64 + 64 * 256)
     fb_bound = bound(fb256["least_bytes"], 256 * fb_ops)
     fb_bound960 = bound(fb960["least_bytes"], 960 * fb_ops)
@@ -940,22 +1076,31 @@ def main() -> int:
                    gather_err, gather_times[0], gather_times[1],
                    gather_times[2], gather_times[3], gather_times[1],
                    launches_slice=slice_launches["beam_gather_rows"]),
-        kernel_row("fused_bottleneck_frames", "fused_bottleneck.cu",
-                   "benchmarks/probe_fused_bottleneck.py:108",
-                   slice_launches["fused_bottleneck_frames"],
-                   fused_err["frames"], fb256["frames_ms"], fused_plain_ms,
-                   *fb_bound, fb256["unfused_ms"], ms_960=fb960["frames_ms"],
-                   library_ms_960=fb960["unfused_ms"],
-                   bound_ms_960=fb_bound960[0], model_rel_err=model_err),
-        kernel_row("fused_bottleneck_multi", "fused_bottleneck.cu",
-                   "benchmarks/micro4.py:84",
-                   slice_launches["fused_bottleneck_multi"],
-                   fused_err["multi"],
-                   min(fb256["multi2_ms"], fb256["multi4_ms"]),
-                   fused_plain_ms, *fb_bound, fb256["unfused_ms"],
-                   ms_960=min(fb960["multi2_ms"], fb960["multi4_ms"]),
-                   library_ms_960=fb960["unfused_ms"],
-                   bound_ms_960=fb_bound960[0]),
+        *(kernel_row(
+            entry, "fused_bottleneck.cu", replaces, slice_launches[entry],
+            fused_err[entry], fb256[key], fused_plain_ms, *fb_bound,
+            fb256["unfused_ms"], ms_960=fb960[key],
+            library_ms_960=fb960["unfused_ms"], bound_ms_960=fb_bound960[0],
+            folded_library_ms=fb256["folded_library_ms"],
+            folded_library_ms_960=fb960["folded_library_ms"], **more)
+          for entry, replaces, key, more in (
+              ("fused_bottleneck_frames_wgmma", FB_FRAMES_TPU, "frames_ms",
+               dict(queued_ms=fb256["frames_queued_ms"],
+                    queued_ms_960=fb960["frames_queued_ms"],
+                    folded_library_queued_ms=fb256["folded_library_queued_ms"],
+                    folded_library_queued_ms_960=fb960[
+                        "folded_library_queued_ms"],
+                    model_rel_err=model_err)),
+              ("fused_bottleneck_multi_wgmma", FB_MULTI_TPU, "multi_ms",
+               dict(queued_ms=fb256["multi4_queued_ms"],
+                    queued_ms_960=fb960["multi4_queued_ms"])),
+              ("fused_bottleneck_frames", FB_FRAMES_TPU, "frames_v1_ms",
+               dict(model_rel_err=model_err,
+                    ms_s2_proj=fb_others["slow-s2 proj"]["ms"],
+                    bound_ms_s2_proj=fb_others["slow-s2 proj"]["bound_ms"],
+                    ms_s3=fb_others["slow-s3"]["ms"],
+                    bound_ms_s3=fb_others["slow-s3"]["bound_ms"])),
+              ("fused_bottleneck_multi", FB_MULTI_TPU, "multi_v1_ms", {}))),
         kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
                    slice_launches["staged_copy"], 0.0, copy_ms["staged"],
                    copy_ms["clone"], *copy_bound, copy_ms["clone"]),

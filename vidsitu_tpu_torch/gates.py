@@ -16,8 +16,10 @@ Gates:
   1b. The fused bottleneck itself against the unfused chain
       (``Bottleneck.forward``, eval mode, bf16, channels-last) at slow-s2
       geometry (56x56, 256/64/256) for 256 frames (32 clips) and 960 frames
-      (120 clips), timed in turns. FLIP when a fused kernel is faster: it is
-      then worth routing into the backbone and an A/B with ``bench featext``.
+      (120 clips), timed in turns: the routed entries, the first kernel's
+      entries forced, and the chain. FLIP when a routed fused kernel is
+      faster: it is then worth routing into the backbone and an A/B with
+      ``bench featext``.
   2.  The beam-cache row-gather kernel against ``index_select`` inside a
       beam-5 decode at the reference's decoder dims: PASS is zero token
       mismatches.
@@ -166,29 +168,48 @@ def gate_fused_bottleneck(dev: torch.device, reps: int = 5) -> Dict:
 
         want = unfused().permute(0, 2, 3, 4, 1).reshape(frames.shape).float()
         scale = want.abs().max().item()
-        kernels = {
-            "frames": lambda: FB.fused_bottleneck_frames(frames, *folded),
-            "multi2": lambda: FB.fused_bottleneck_multi(frames, *folded[:6],
-                                                        frames_per_step=2),
-            "multi4": lambda: FB.fused_bottleneck_multi(frames, *folded[:6],
-                                                        frames_per_step=4),
-        }
+
+        def wrappers(forced: bool):
+            """The three ways the gate drives the block, on the routed
+            entries or with the first kernel's entries forced."""
+            frames_entry, multi_entry = (
+                (FB.ENTRIES[name][1] if forced else None)
+                for name in ("fused_bottleneck_frames",
+                             "fused_bottleneck_multi"))
+            return {
+                "frames": lambda: FB.fused_bottleneck_frames(
+                    frames, *folded, entry=frames_entry),
+                "multi2": lambda: FB.fused_bottleneck_multi(
+                    frames, *folded[:6], frames_per_step=2,
+                    entry=multi_entry),
+                "multi4": lambda: FB.fused_bottleneck_multi(
+                    frames, *folded[:6], frames_per_step=4,
+                    entry=multi_entry),
+            }
+
+        kernels, forced = wrappers(False), wrappers(True)
         times = {}
         for name, fn in kernels.items():
-            err = (fn().float() - want).abs().max().item()
-            assert err <= 5e-2 * scale, (name, n_frames, err, scale)
-            times[name], times["unfused_vs_" + name] = medians_in_turns(
-                [fn, unfused], reps)
+            for label, run in ((name, fn), (name + "_v1", forced[name])):
+                err = (run().float() - want).abs().max().item()
+                assert err <= 5e-2 * scale, (label, n_frames, err, scale)
+            (times[name], times[name + "_v1"],
+             times["unfused_vs_" + name]) = medians_in_turns(
+                [fn, forced[name], unfused], reps)
         unfused_ms = float(np.median(
             [times.pop("unfused_vs_" + name) for name in kernels]))
         moved = (frames.numel() + want.numel()) * frames.element_size()
         best = min(kernels, key=times.get)
         flip = times[best] < unfused_ms
+        routed = FB.kernel_entry(frames.dtype, S2["cin"], S2["cmid"],
+                                 S2["cout"], False, S2["hw"])
         print(f"[gate 1b] slow-s2 block, {n_frames} frames bf16 "
               f"({moved / 1e9:.2f} GB least traffic): fused frames "
               f"{times['frames']:.3f} ms | multi2 {times['multi2']:.3f} | "
-              f"multi4 {times['multi4']:.3f} | unfused chain "
-              f"{unfused_ms:.3f} ms")
+              f"multi4 {times['multi4']:.3f} (routed: {routed}) | the first "
+              f"kernel forced: frames {times['frames_v1']:.3f} | multi2 "
+              f"{times['multi2_v1']:.3f} | multi4 {times['multi4_v1']:.3f} | "
+              f"unfused chain {unfused_ms:.3f} ms")
         print("[gate 1b] " + (
             f"FLIP: the fused kernel ({best}) beats the unfused chain at "
             f"{n_frames} frames — consider routing it into the model and A/B "
@@ -198,7 +219,7 @@ def gate_fused_bottleneck(dev: torch.device, reps: int = 5) -> Dict:
         res[str(n_frames)] = {
             **{f"{k}_ms": round(v, 4) for k, v in times.items()},
             "unfused_ms": round(unfused_ms, 4), "least_bytes": moved,
-            "flip": bool(flip)}
+            "routed_entry": routed, "flip": bool(flip)}
         del frames, ncthw, want
     return res
 

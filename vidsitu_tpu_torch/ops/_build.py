@@ -102,7 +102,8 @@ def load_beam_gather() -> ctypes.CDLL:
 
 @functools.cache
 def load_fused_bottleneck() -> ctypes.CDLL:
-    """The fused inference bottleneck library, built on first call."""
+    """The fused inference bottleneck library (both kernels, four entries),
+    built on first call."""
     lib = ctypes.CDLL(str(build("fused_bottleneck")))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_bottleneck_frames.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
@@ -110,6 +111,13 @@ def load_fused_bottleneck() -> ctypes.CDLL:
     lib.fused_bottleneck_multi.argtypes = (
         [ptr] * 8 + [i32] * 9 + [ctypes.POINTER(i32), ptr])
     lib.fused_bottleneck_multi.restype = i32
+    lib.fused_bottleneck_frames_wgmma.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.fused_bottleneck_multi_wgmma.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+    lib.fused_bottleneck_wgmma_smem_bytes.argtypes = [i32]
+    for fn in (lib.fused_bottleneck_frames_wgmma,
+               lib.fused_bottleneck_multi_wgmma,
+               lib.fused_bottleneck_wgmma_smem_bytes):
+        fn.restype = i32
     return lib
 
 
