@@ -80,9 +80,35 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    at every block shape, the TPU probe's VMEM-sized blocks refused; GB/s of
    each beside ``clone()`` and one elementwise op;
 15. ``vidsitu_tpu_torch.bench`` in process: ``gates`` (FLIP / no-flip lines),
-   ``featext 32`` and ``decode5_real``, one JSON line each.
+   ``featext 32`` and ``decode5_real``, one JSON line each;
+16. the attention's backward (``nl_attn_bwd``, built in phase 1 from the same
+   source) against the plain backward and the plain version that repeats
+   its tiles, and the forward's log-sum-exp against the plain one, at phase
+   2's shapes, both kinds, float32 and bf16 (error relative to each
+   gradient's scale: 2e-4 float32; 5e-2 bf16, or one bf16 step of the
+   largest gradient where that is more); then the kernel, autograd of the
+   plain attention and the library's fused attention's backward timed in
+   turns at B = 80 (s3 and s4);
+17. this slice's main path: ``python -m vidsitu_tpu_torch.main
+   --task_type=vb`` in process, I3D-NL R50 at full width and depth, bf16
+   products, float32 parameters and Adam, on a synthetic 224 px split of 8
+   train segments (2 steps of 4 videos = 20 clips an epoch): two epochs,
+   each validated, the best model validated again, then a second call that
+   resumes epoch 2's checkpoint by uid for one more epoch. Finite losses,
+   weights and BatchNorm statistics moved, ``{uid}.ckpt``, 5 events x 5
+   verbs per segment in ``valid_0.pkl``, the optimizer state restored, and
+   exactly 5 forward launches a train step and an eval batch and 5
+   backward launches a train step;
+18. one I3D-NL train step at the config's batch (16 videos = 80 clips) on
+   device tensors with the kernels and with the plain attention under
+   autograd: loss and every non-local block's theta / phi / g / out
+   gradients within 5e-2 of their scale; the update timed in turns (ms,
+   videos/s, TFLOP/s by ``FlopCounterMode``), peak memory, and a
+   ``torch.profiler`` breakdown of one update;
+19. ``vidsitu_tpu_torch.bench`` ``vbtrain`` and ``vbtrain16`` in process
+   (SlowFast R50 8x8, 8 videos a step, the second with grad_accum 2).
 
-Phases 1-10 run as before, at the same depth and repeats.
+Phases 1-15 run as before, at the same depth and repeats.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
 before the last line, and as the last line
@@ -148,6 +174,11 @@ REAL_VOCAB = 50257 + 1 + 2 * 11 + 1  # GPT-2 + <EV_SEP> + <ArgX>/</ArgX> + pad
 # batches on the H100. A broken route disagrees on most events.
 ROUTE_AGREEMENT = 0.95
 QUEUED = 10  # calls queued between two CUDA events: device time per call
+# the backward check's tolerance, relative to each gradient's scale
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+VB_BS = 4  # videos a train step of phase 17 (20 clips)
+NL_BLOCKS = 5  # i3d_r50_nl_8x8: s3 blocks 1, 3 and s4 blocks 1, 3, 5
+BWD_TPU = "vidsitu_tpu/ops/attention.py:121"  # jax.grad of _einsum_attention
 
 
 def log(*a):
@@ -960,6 +991,474 @@ def phase_bench(dev):
     return gates_res, featext, decode
 
 
+def grad_limit(dtype, ref):
+    """The backward check's tolerance for one gradient, relative to its
+    scale (the largest |value|): 2e-4 in float32; in bf16 5e-2, or one bf16
+    step of the largest gradient where that is more."""
+    top = ref.float().abs().max().item()
+    if dtype != torch.bfloat16:
+        return BWD_TOL[dtype] * top
+    return max(BWD_TOL[dtype] * top, 2.0 ** (math.floor(math.log2(top)) - 7))
+
+
+def backward_ms(out, inputs, dout):
+    """A function that runs the backward of ``out`` alone (the forward stays
+    outside the timed window)."""
+    return lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)
+
+
+def phase_backward_kernel(dev):
+    """Phase 16: the backward entry against the plain backward and the plain
+    version that repeats its tiles, the forward's log-sum-exp against the
+    plain one, at every listed shape, both kinds and dtypes; then the
+    backward kernel, autograd of the plain attention and the library's
+    fused attention's backward timed in turns at B = 80."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vidsitu_tpu_torch.ops import attention as A
+
+    from vidsitu_tpu_torch.ops import _build
+
+    log(f"[16 build] {A.BWD_ENTRY} is built with the forward entries from "
+        "nonlocal_attn.cu in phase 1 (one source); ptxas of its kernels:")
+    kernel = None
+    for line in (_build.BUILD_DIR / "nonlocal_attn.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif kernel and "nl_attn_bwd" in kernel and (
+                "Used" in line or "spill" in line):
+            log(f"    {kernel[:60]}: {line.split(':', 1)[-1].strip()}")
+    rng = np.random.default_rng(16)
+    worst = worst_rel = 0.0  # bf16: absolute, and relative to the scale
+    for name, b, (sq, sk, d) in ATTN_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = seeded_qkv(rng, b, sq, sk, d, dtype, dev)
+            do = seeded_qkv(rng, b, sq, sq, d, dtype, dev)[0]
+            for kind in ("softmax", "dot_product"):
+                scale = d ** -0.5
+                out, lse = A.fused_attention(q, k, v, kind, scale,
+                                             with_lse=True)
+                want_lse = None
+                if kind == "softmax":
+                    _, want_lse = A.attention_tiled_reference(
+                        q, k, v, kind, scale, A.wgmma_block_k(d),
+                        return_lse=True)
+                got = A.fused_attention_backward(q, k, v, out, do, lse, kind,
+                                                 scale)
+                ref = A.attention_backward_reference(q, k, v, out, do, kind,
+                                                     scale)
+                til = A.attention_backward_tiled_reference(
+                    q, k, v, out, do, lse, kind, scale)
+                torch.cuda.synchronize()
+                ok = True
+                errs = []
+                for g, r, t in zip(got, ref, til):
+                    lim = grad_limit(dtype, r)
+                    e = (g.float() - r.float()).abs().max().item()
+                    et = (g.float() - t.float()).abs().max().item()
+                    ok = ok and g.shape == r.shape and g.dtype == dtype and (
+                        e <= lim and et <= lim)
+                    top = r.float().abs().max().item()
+                    errs.append(f"{e / top:.2e}/{et / top:.2e}")
+                    if dtype == torch.bfloat16:
+                        worst, worst_rel = max(worst, e), max(worst_rel,
+                                                              e / top)
+                lse_err = 0.0
+                if want_lse is not None:
+                    lse_err = (lse - want_lse).abs().max().item()
+                    ok = ok and lse_err <= 1e-3
+                log(f"[16 backward] {name} B={b} Sq={sq} Sk={sk} d={d} "
+                    f"{str(dtype)[6:]} {kind}: dq/dk/dv error / scale vs plain"
+                    f"/tiled {' '.join(errs)}; lse {lse_err:.2e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                assert ok, "backward kernel disagrees with the plain version"
+    times = {}
+    for name, (sq, sk, d) in (("s3", S3), ("s4", S4)):
+        b = 80
+        scale = d ** -0.5
+        q, k, v = seeded_qkv(rng, b, sq, sk, d, torch.bfloat16, dev)
+        out, lse = A.fused_attention(q, k, v, "softmax", scale, with_lse=True)
+        do = torch.randn_like(out)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        plain_out = A.attention_reference(*leaves, "softmax", scale)
+        l4 = [t.detach().unsqueeze(1).requires_grad_() for t in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *l4, scale=scale)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(lib_out, l4, do.unsqueeze(1),
+                                retain_graph=True)
+            torch.cuda.synchronize()
+        lib_kernels = sorted((e for e in prof.key_averages()
+                              if e.self_device_time_total > 0),
+                             key=lambda e: -e.self_device_time_total)
+        backend = lib_kernels[0].key[:90] if lib_kernels else "not measured"
+        ms, plain_ms, lib_ms = medians_in_turns([
+            lambda: A.fused_attention_backward(q, k, v, out, do, lse,
+                                               "softmax", scale),
+            backward_ms(plain_out, leaves, do),
+            backward_ms(lib_out, l4, do.unsqueeze(1))], 5)
+        flops = 5 * 2 * b * sq * sk * d
+        moved = (sum(t.numel() * t.element_size() for t in (q, k, v, out, do))
+                 * 2 - out.numel() * out.element_size()
+                 - do.numel() * do.element_size() + lse.numel() * 4)
+        bound_ms, bound_by = bound(moved, flops)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_backend": backend}
+        log(f"[16 backward] time {name} B={b} Sq={sq} Sk={sk} d={d} bf16 "
+            f"softmax: {A.BWD_ENTRY} {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s, {100 * bound_ms / ms:.1f} % of the bound), autograd of "
+            f"the plain attention {plain_ms:.4f} ms, scaled_dot_product_"
+            f"attention backward {lib_ms:.4f} ms (its top kernel: {backend}), "
+            f"bound {bound_ms:.4f} ms by {bound_by}")
+        del leaves, plain_out, l4, lib_out
+        torch.cuda.empty_cache()
+    return worst, worst_rel, times
+
+
+def vb_train_args(paths, root, *extra):
+    return ["chip_smoke_vb", "--task_type=vb", "--mdl.mdl_name=sf_base",
+            "--mdl.sf_mdl_name=i3d_r50_nl_8x8", "--train.dtype=bfloat16",
+            f"--train.bs={VB_BS}", f"--train.bsv={VB_BS}", "--train.nw=4",
+            "--train.nwv=4", "--train.epochs=2", "--train.lr=1e-4",
+            "--train.save_mdl_epochs=True",
+            f"--misc.tmp_path={root / 'tmp'}",
+            *[f"--{k}={v}" for k, v in paths.items()], "--device=cuda",
+            *extra]
+
+
+def phase_vb_train_main(paths, root):
+    """Phase 17: vb training through the entry point, I3D-NL R50 at full
+    width and depth on the synthetic 224 px split: two epochs, the best
+    model validated once more, then a second call that resumes the
+    checkpoint of epoch 2 for one more epoch. Exact kernel launches."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.data import build_comm
+    from vidsitu_tpu_torch.models.selector import (
+        build_model,
+        init_model_variables,
+    )
+    from vidsitu_tpu_torch.ops import attention as A
+
+    n_train = len(json.loads(Path(paths["ds.vsitu.split_files_lb.train"])
+                             .read_text()))
+    steps = n_train // VB_BS
+    assert steps == 2, f"{n_train} train segments: {steps} steps an epoch"
+    fwd = A.kernel_entry(torch.bfloat16, 256)
+    assert fwd == A.kernel_entry(torch.bfloat16, 512)
+    A.reset_launches()
+    t0 = time.perf_counter()
+    res = port_main.main(vb_train_args(paths, root))
+    wall = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES_BY_ENTRY)
+    learner, cfg = res["learner"], res["cfg"]
+    n_nl = len(nl_blocks(learner.model))
+    eval_batches = -(-8 // VB_BS)  # the valid split's 8 segments
+    want_fwd = n_nl * (2 * steps + 2 * eval_batches + eval_batches)
+    want_bwd = n_nl * 2 * steps
+    log(f"[17 train] main --task_type=vb i3d_r50_nl_8x8 bf16, {n_train} "
+        f"segments ({steps} steps of {VB_BS} videos = {5 * VB_BS} clips), 2 "
+        f"epochs + final validation in {wall:.1f} s; launches {launches} "
+        f"(want {fwd} {want_fwd}, {A.BWD_ENTRY} {want_bwd})")
+    assert n_nl == NL_BLOCKS and launches == {
+        **dict.fromkeys(launches, 0), fwd: want_fwd,
+        A.BWD_ENTRY: want_bwd}, (n_nl, launches)
+    tdir = (Path(cfg.misc.tmp_path) / "tracking"
+            / f"{cfg.expm.exp_name}_vb" / cfg.uid)
+    recs = [json.loads(x) for x in (tdir / "metrics.jsonl").read_text()
+            .splitlines()]
+    losses = [r["trn_loss"] for r in recs]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert learner.model_file.is_file(), learner.model_file
+    with open(res["pred_dir"] / "valid_0.pkl", "rb") as f:
+        preds = pickle.load(f)
+    assert len(preds) == 8 and all(
+        len(p["pred_vbs_ev"]) == 5 and all(len(e) == 5 for e in p["pred_vbs_ev"])
+        and np.isfinite(np.asarray(p["pred_scores_ev"])).all()
+        for p in preds), "5 events x 5 verbs per segment"
+    _, acc = res["results"]["valid"]
+    # the weights moved from flax's initial values
+    fresh = init_model_variables(build_model(cfg, build_comm(cfg)),
+                                 int(cfg.train.seed)).state_dict()
+    ep2 = torch.load(learner.model_epoch_dir / "mdl_ep_2.ckpt",
+                     map_location="cpu", weights_only=True)
+    trained = ep2["model_state_dict"]
+    moved = {k: not torch.equal(trained[k], fresh[k]) for k in fresh
+             if not k.endswith("num_batches_tracked")}
+    nl = [k for k in moved if ".nl_" in k and k.endswith(
+        (".weight", "running_var"))]
+    assert nl and all(moved[k] for k in nl), [k for k in nl if not moved[k]]
+    log(f"[17 train] train losses {losses}, valid metrics {acc}; "
+        f"{sum(moved.values())}/{len(moved)} tensors moved from the initial "
+        f"values (every non-local weight and BN statistic among them); "
+        f"{len(preds)} segments x 5 events x 5 verbs in valid_0.pkl")
+    # resume the epoch-2 checkpoint by uid for one more epoch
+    A.reset_launches()
+    res2 = port_main.main(vb_train_args(
+        paths, root, "--train.resume=True", "--train.epochs=1",
+        f"--train.resume_path={learner.model_epoch_dir / 'mdl_ep_2.ckpt'}",
+        "--run_final_val=False"))
+    l2 = res2["learner"]
+    opt_steps = int(l2.optimizer.state_dict()["state"][0]["step"])
+    log(f"[17 train] resumed at epoch 2 it {2 * steps}: now epoch "
+        f"{l2.num_epoch}, it {l2.num_it}, Adam step {opt_steps}; launches "
+        f"{dict(A.LAUNCHES_BY_ENTRY)}")
+    assert l2.num_epoch == 3 and l2.num_it == 3 * steps, (l2.num_epoch,
+                                                          l2.num_it)
+    assert opt_steps == 3 * steps, "optimizer state not restored"
+    assert A.LAUNCHES_BY_ENTRY[A.BWD_ENTRY] == n_nl * steps
+    return launches, wall
+
+
+def nl_blocks(model):
+    from vidsitu_tpu_torch.models.video_backbone import NonLocalBlock
+
+    return {n: m for n, m in model.named_modules()
+            if isinstance(m, NonLocalBlock)}
+
+
+def phase_train_step(dev):
+    """Phase 18: one I3D-NL R50 train step at the config's batch (16 videos
+    = 80 clips) on device tensors, with the kernels and with the plain
+    attention under autograd: loss and non-local gradients compared, the
+    step timed in turns, peak memory, a profile of one step."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vidsitu_tpu_torch.bench import make_vb_train
+    from vidsitu_tpu_torch.convert.from_flax import (
+        flax_to_state_dict,
+        seeded_variables,
+    )
+    from vidsitu_tpu_torch.ops import attention as A
+
+    videos, accum = 16, 1
+    model, opt, batch, _ = make_vb_train("i3d_r50_nl_8x8", videos, dev)
+    # seeded non-zero gammas: at flax's init the non-local blocks are
+    # identities and their gradients zero
+    sd = flax_to_state_dict(seeded_variables(model, 0))
+    model.load_state_dict(sd, strict=True)
+    blocks = nl_blocks(model)
+    assert len(blocks) == NL_BLOCKS
+
+    def use(attn):
+        for m in blocks.values():
+            m.attention = attn
+
+    captured = {}  # block -> [its input, the gradient at its output]
+
+    def full_step(attn, capture=False):
+        use(attn)
+        hooks = []
+        if capture:
+            def keep(mod, args, out, name):
+                captured[name] = [args[0].detach()]
+                out.register_hook(
+                    lambda g: captured[name].append(g.detach()))
+            hooks = [m.register_forward_hook(functools.partial(keep, name=n))
+                     for n, m in blocks.items()]
+        opt.zero_grad(set_to_none=True)
+        loss = model(batch)["loss"]
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        return loss.detach().float()
+
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss_k = full_step(A.nonlocal_attention, capture=True)
+        peak = torch.cuda.max_memory_allocated(dev)
+    except torch.cuda.OutOfMemoryError:
+        videos, accum = 8, 2
+        log("[18 step] 80 clips do not fit: 8 videos with grad_accum 2")
+        del model, opt, batch
+        captured.clear()
+        torch.cuda.empty_cache()
+        model, opt, batch, _ = make_vb_train("i3d_r50_nl_8x8", videos, dev)
+        model.load_state_dict(sd, strict=True)
+        blocks = nl_blocks(model)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss_k = full_step(A.nonlocal_attention, capture=True)
+        peak = torch.cuda.max_memory_allocated(dev)
+    loss_p = full_step(A.attention_reference)
+    torch.cuda.synchronize()
+    loss_err = abs(loss_k.item() - loss_p.item())
+    loss_ok = np.isfinite(loss_k.item()) and loss_err <= 5e-2 * max(
+        abs(loss_p.item()), 1.0)
+    log(f"[18 step] i3d_r50_nl_8x8 train step, {videos} videos = "
+        f"{5 * videos} clips bf16: loss kernel {loss_k.item():.5f} vs plain "
+        f"{loss_p.item():.5f} (diff {loss_err:.2e}, limit 5e-2 of the loss) "
+        f"{'ok' if loss_ok else 'FAIL'}")
+    assert loss_ok, "kernel and plain train steps disagree on the loss"
+
+    # Each non-local block on its own, on the input and the output gradient
+    # it had in the step above. In bf16, the training path's own precision:
+    # the backward kernel's dq / dk / dv against both plain backwards on the
+    # attention's own tensors. In float32 (the block, its input and its
+    # output gradient cast up; both kernel entries take float32): theta /
+    # phi / g / out weight gradients with the backward kernel and with the
+    # plain backward, the forward kernel in both (with the plain forward too,
+    # printed). The bf16 weight gradients are printed, not held to 5e-2: a
+    # weight's gradient sums its input's gradient over 62,720 (s3) or 15,680
+    # (s4) positions, and dO sums to about zero over them (it leaves a
+    # BatchNorm), so the sum cancels to a small part of its terms and one
+    # bf16 rounding of dv more or less moves it by percents; and with the
+    # plain forward too, one rounding of an attention output passes through
+    # the BatchNorm after it, whose batch deviation is small at seeded
+    # weights (whole steps agree on the loss only).
+    def recording(store):
+        def attn(q, k, v, kind, scale):
+            out = A.nonlocal_attention(q, k, v, kind, scale)
+            store.update(q=q.detach(), k=k.detach(), v=v.detach(),
+                         o=out.detach(), kind=kind, scale=scale)
+            out.register_hook(lambda g: store.__setitem__("do", g.detach()))
+            for key, t in (("dq", q), ("dk", k), ("dv", v)):
+                t.register_hook(
+                    lambda g, key=key: store.__setitem__(key, g.detach()))
+            return out
+        return attn
+
+    def block_grads(m, x, g_out, attn):
+        m.attention = attn
+        m.zero_grad(set_to_none=True)
+        m(x.clone().requires_grad_()).backward(g_out)
+        return {c: getattr(m, c).weight.grad.float().clone()
+                for c in ("theta", "phi", "g", "out")}
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() / max(
+            b.float().abs().max().item(), 1e-30)
+
+    def plain_backward(q, k, v, out, dout, lse, kind, scale):
+        return A.attention_backward_reference(q, k, v, out, dout, kind, scale)
+
+    def with_plain_backward(m, x, g_out):
+        kernel_backward = A.NonLocalAttnFn.backward_impl
+        A.NonLocalAttnFn.backward_impl = staticmethod(plain_backward)
+        try:
+            return block_grads(m, x, g_out, A.nonlocal_attention)
+        finally:
+            A.NonLocalAttnFn.backward_impl = kernel_backward
+
+    worst = worst_attn = 0.0
+    for name, m in blocks.items():
+        x, g_out = captured[name]
+        store = {}
+        g_k = block_grads(m, x, g_out, recording(store))
+        g_p = block_grads(m, x, g_out, A.attention_reference)
+        args = [store[key] for key in ("q", "k", "v", "o", "do")]
+        want = A.attention_backward_reference(*args, store["kind"],
+                                              store["scale"])
+        _, lse = A.fused_attention(*args[:3], store["kind"], store["scale"],
+                                   with_lse=True)
+        want_t = A.attention_backward_tiled_reference(
+            *args, lse, store["kind"], store["scale"])
+        attn_errs = {key: max(rel(store[key], w), rel(store[key], wt))
+                     for key, w, wt in zip(("dq", "dk", "dv"), want, want_t)}
+        del store, args, want, want_t
+        x32, g32 = x.float(), g_out.float()
+        g_k32 = block_grads(m, x32, g32, A.nonlocal_attention)
+        g_pb32 = with_plain_backward(m, x32, g32)
+        g_p32 = block_grads(m, x32, g32, A.attention_reference)
+        torch.cuda.synchronize()
+        errs = {c: rel(g_k32[c], g_pb32[c]) for c in g_k32}
+        ok = (all(e <= 5e-2 for e in errs.values())
+              and all(e <= 5e-2 for e in attn_errs.values())
+              and all(g_pb32[c].abs().max().item() > 0 for c in g_pb32))
+        log(f"[18 step] {name} {tuple(x.shape)}: bf16 dq/dk/dv vs both plain "
+            f"backwards on the block's tensors, error / scale "
+            + " ".join(f"{c} {e:.2e}" for c, e in attn_errs.items())
+            + "; float32 theta/phi/g/out weight gradients, backward kernel "
+            "vs plain backward " + " ".join(f"{c} {e:.2e}"
+                                             for c, e in errs.items())
+            + f" (limit 5e-2) {'ok' if ok else 'FAIL'}; printed only: "
+            "float32 with the plain forward too " + " ".join(
+                f"{c} {rel(g_k32[c], g_p32[c]):.2e}" for c in g_k32)
+            + ", bf16 kernels vs plain " + " ".join(
+                f"{c} {rel(g_k[c], g_p[c]):.2e}" for c in g_k))
+        assert ok, f"{name}: kernel and plain gradients disagree"
+        worst = max(worst, *errs.values())
+        worst_attn = max(worst_attn, *attn_errs.values())
+    captured.clear()
+
+    def step(attn):
+        def run():
+            use(attn)
+            for _ in range(accum):
+                (model(batch)["loss"] / accum).backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        return run
+
+    use(A.nonlocal_attention)
+    with FlopCounterMode(display=False) as counter:
+        model(batch)["loss"].backward()
+    opt.zero_grad(set_to_none=True)
+    flops = float(counter.get_total_flops()) * accum
+    ms, plain_ms = medians_in_turns([step(A.nonlocal_attention),
+                                     step(A.attention_reference)], 3)
+    step_videos = videos * accum
+    log(f"[18 step] update of {step_videos} videos: kernels {ms:.1f} ms = "
+        f"{step_videos * 1e3 / ms:.2f} videos/s, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s ({flops:.4g} FLOP by "
+        f"FlopCounterMode, {100 * flops / ms / 1e9 / 989:.1f} % of the bf16 "
+        f"peak); plain attention {plain_ms:.1f} ms = "
+        f"{step_videos * 1e3 / plain_ms:.2f} videos/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    # where a step's time goes
+    run = step(A.nonlocal_attention)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = max(sum(e.self_device_time_total for e in rows) / 1e3, 1e-9)
+    attn_ms = sum(e.self_device_time_total for e in rows
+                  if "nl_attn" in e.key) / 1e3
+    log(f"[18 profile] one update: device kernels {dev_ms:.1f} ms against "
+        f"{wall * 1e3:.1f} ms unprofiled wall (device busy "
+        f"{100 * dev_ms / wall / 1e3:.1f} %); non-local attention kernels "
+        f"{attn_ms:.2f} ms ({100 * attn_ms / dev_ms:.1f} %)")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{100 * e.self_device_time_total / 1e3 / dev_ms:5.1f} % "
+            f"{e.count:6d}x  {e.key[:80]}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return {"videos": step_videos, "accum": accum, "ms": ms,
+            "plain_ms": plain_ms, "tflops": flops / ms / 1e9,
+            "peak_gib": peak / 2**30, "grad_rel_err": worst,
+            "attn_grad_rel_err": worst_attn,
+            "device_busy": dev_ms / wall / 1e3, "attn_share": attn_ms / dev_ms}
+
+
+def phase_bench_train(dev):
+    """Phase 19: ``vidsitu_tpu_torch.bench`` vbtrain and vbtrain16 in
+    process (SlowFast R50 8x8, no kernel of the port on that path)."""
+    from vidsitu_tpu_torch import bench
+
+    name = torch.cuda.get_device_name(dev)
+    out = []
+    for mode, metric in (("vbtrain", "slowfast_vb_train_throughput"),
+                         ("vbtrain16",
+                          "slowfast_vb_train_throughput_bs16_accum2")):
+        (res,) = bench.main([mode])
+        assert res["metric"] == metric and res["device"] == name, res
+        assert np.isfinite(res["value"]) and res["value"] > 0, res
+        assert name in res["roofline_of"] and res["roofline_frac"] > 0, res
+        out.append(res)
+        torch.cuda.empty_cache()
+    log(f"[19 bench] vbtrain {out[0]['value']} videos/s "
+        f"({out[0]['tflops']} TFLOP/s), vbtrain16 {out[1]['value']} videos/s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1030,6 +1529,19 @@ def main() -> int:
     log(f"[15 bench] kernel launches on this slice's path: {slice_launches}")
     assert all(n > 0 for n in slice_launches.values()), slice_launches
 
+    bwd_err, bwd_rel_err, bwd_times = phase_backward_kernel(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vb_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        paths = make_synth_dataset(root / "data", n_train=2 * VB_BS,
+                                   n_valid=8, n_test=1, with_frames=True,
+                                   frame_hw=224, seed=17)
+        log(f"[17 train] synthetic dataset (224 px JPEGs) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        train_launches, train_wall = phase_vb_train_main(paths, root)
+    step_res = phase_train_step(dev)
+    bench_train = phase_bench_train(dev)
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert not leaked, f"jax was imported: {leaked[:5]}"
@@ -1043,6 +1555,7 @@ def main() -> int:
                 "library_ms": library_ms, **more}
 
     s3, s4 = times["s3"], times["s4"]
+    fwd_entry = s3["entry"]
     # fused bottleneck at the gate's 256 frames of 56x56, 256/64/256, bf16
     fb256, fb960 = fused_timed["256"], fused_timed["960"]
     fb_others = fused_timed["others"]
@@ -1101,6 +1614,24 @@ def main() -> int:
                     ms_s3=fb_others["slow-s3"]["ms"],
                     bound_ms_s3=fb_others["slow-s3"]["bound_ms"])),
               ("fused_bottleneck_multi", FB_MULTI_TPU, "multi_v1_ms", {}))),
+        kernel_row("nl_attn_bwd", "nonlocal_attn.cu", BWD_TPU,
+                   train_launches["nl_attn_bwd"], bwd_err,
+                   bwd_times["s3"]["ms"], bwd_times["s3"]["plain_ms"],
+                   bwd_times["s3"]["bound_ms"], bwd_times["s3"]["bound_by"],
+                   bwd_times["s3"]["library_ms"],
+                   replaces_note="no TPU kernel: jax.grad of _einsum_attention",
+                   max_rel_err=bwd_rel_err,
+                   ms_s4=bwd_times["s4"]["ms"],
+                   plain_ms_s4=bwd_times["s4"]["plain_ms"],
+                   library_ms_s4=bwd_times["s4"]["library_ms"],
+                   bound_ms_s4=bwd_times["s4"]["bound_ms"],
+                   bound_by_s4=bwd_times["s4"]["bound_by"],
+                   library_backend=bwd_times["s3"]["library_backend"],
+                   library_backend_s4=bwd_times["s4"]["library_backend"],
+                   launches_forward_in_training=train_launches[
+                       fwd_entry],
+                   train_step=step_res, train_main_wall_s=train_wall,
+                   bench_vbtrain=[r["value"] for r in bench_train]),
         kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
                    slice_launches["staged_copy"], 0.0, copy_ms["staged"],
                    copy_ms["clone"], *copy_bound, copy_ms["clone"]),

@@ -140,7 +140,8 @@ def test_routing_and_forced_entry_on_gpu(cuda_device):
         q = torch.zeros(2, 40, d, device=cuda_device, dtype=dtype)
         port.fused_attention(q, q, q, "softmax")
     torch.cuda.synchronize()
-    assert port.LAUNCHES_BY_ENTRY == {"nl_attn_fwd_wgmma": 1, "nl_attn_fwd": 2}
+    assert port.LAUNCHES_BY_ENTRY == {"nl_attn_fwd_wgmma": 1, "nl_attn_fwd": 2,
+                                      port.BWD_ENTRY: 0}
     for dtype, d in ((torch.float32, 256), (torch.bfloat16, 24)):
         q = torch.zeros(2, 40, d, device=cuda_device, dtype=dtype)
         with pytest.raises(ValueError, match="nl_attn_fwd_wgmma takes"):

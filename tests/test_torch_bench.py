@@ -1,6 +1,6 @@
 """The port's measuring entry point (``python -m vidsitu_tpu_torch.bench``)
 on the CPU at tiny sizes: well-formed JSON lines under the JAX bench's metric
-names, the training modes refused, the gates refused off the card, and the
+names, the training modes not ported yet refused, the gates refused off the card, and the
 analytic decode-traffic count equal to the JAX bench's (root ``bench.py``
 imports JAX only inside its functions).
 """
@@ -76,6 +76,20 @@ def test_decode_real_names_its_width_in_the_metric():
 def test_training_modes_are_not_ported_yet(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bench.main([mode, "--device=cpu"])
+
+
+@pytest.mark.parametrize("mode,metric,accum", [
+    ("vbtrain", "slowfast_vb_train_throughput", 1),
+    ("vbtrain16", "slowfast_vb_train_throughput_bs2_accum2", 2),
+])
+def test_vb_train_modes_print_one_json_line_on_cpu(mode, metric, accum):
+    torch.set_num_threads(1)
+    (res,) = bench.main([mode, "1", "1", "--device=cpu",
+                         "--vid_mdl.resnet.depth=26",
+                         "--vid_mdl.crop_size=32", "--vid_mdl.num_frames=4"])
+    _check_cpu_line(res, metric)
+    assert res["unit"] == "videos/sec/cpu" and res["accum"] == accum
+    assert res["videos"] == 1 and res["flops_per_step"] > 0
 
 
 def test_unknown_mode_and_bad_flag_exit():

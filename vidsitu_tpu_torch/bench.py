@@ -5,6 +5,7 @@
     python -m vidsitu_tpu_torch.bench decode|decode5|decode_real|decode5_real [bs] [iters]
     python -m vidsitu_tpu_torch.bench feed [segments] [iters]      # host only
     python -m vidsitu_tpu_torch.bench gates [--batch]
+    python -m vidsitu_tpu_torch.bench vbtrain|vbtrain16 [videos] [iters]
     python -m vidsitu_tpu_torch.bench all
 
 Flags: ``--device=cuda`` (the default; raises when no GPU is visible, never
@@ -16,8 +17,9 @@ Every line holds ``metric``, ``value``, ``unit``, ``device`` and the roofline
 keys: achieved GB/s and TFLOP/s and their shares of the card's published
 peaks, with the card named in ``roofline_of``. A line from the CPU carries
 no roofline (the keys are null). Times on a GPU are CUDA-event medians over
-queued calls after one warm-up (``timing.py``). The training modes of the
-JAX bench are not ported yet and raise ``NotImplementedError``.
+queued calls after one warm-up (``timing.py``). ``vbtrain`` and
+``vbtrain16`` time the verb model's train step; the JAX bench's SRL and
+evrel training modes are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ from .timing import call_ms
 H100_HBM_GBPS = 3350.0
 H100_BF16_TFLOPS = 989.0
 
-TRAINING_MODES = ("srl", "srl_real", "evrel_real", "vbtrain", "vbtrain16")
+# training modes not ported yet
+TRAINING_MODES = ("srl", "srl_real", "evrel_real")
+VB_CLASSES = 2154  # the JAX bench's verb vocabulary size
 ROOFLINE_KEYS = ("hbm_gbps", "tflops", "hbm_frac", "flops_frac",
                  "roofline_frac", "roofline_of")
 
@@ -161,6 +165,102 @@ def bench_slowfast_featext(clips: int = 32, iters: int = 10, device="cuda",
         "dtype": dtype,
         "ms_per_forward": round(ms, 3),
         "flops_per_forward": flops,
+        **roofline(moved, flops, ms / 1e3, dev),
+    }
+
+
+def make_vb_train(preset: str, videos: int, device, overrides=None,
+                  seed: int = 1):
+    """The verb model of ``preset`` at full width and depth with flax's
+    initial values from ``seed``, float32 parameters on ``device`` (products
+    in ``train.dtype``), its Adam(0.9, 0.99), and a seeded batch of
+    ``videos`` x 5 clips of normal frames, pre-folded, with zero labels.
+    Returns (model, optimizer, batch, cfg)."""
+    from .models.selector import DTYPES, init_model_variables
+    from .models.vb_models import VbVideoModel
+    from .models.video_backbone import VideoCfg
+    from .utils.config import get_cfg_with_overrides
+
+    dev = resolve_device(device)
+    dtype = compute_dtype(dev, overrides)
+    cfg = get_cfg_with_overrides("bench", **{
+        "mdl.sf_mdl_name": preset, **(overrides or {}), "train.dtype": dtype})
+    vid_cfg = VideoCfg.from_cfg(
+        cfg.vid_mdl, dtype=DTYPES[dtype], remat=cfg.train.remat,
+        remat_stages=cfg.train.remat_stages,
+        bn_f32_stats=cfg.train.bn_f32_stats)
+    model = init_model_variables(VbVideoModel(vid_cfg, VB_CLASSES), seed)
+    model.to(dev).train()
+    if dev.type == "cuda":
+        model.to(memory_format=torch.channels_last_3d)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.99),
+                           eps=1e-8)
+    vm = cfg.vid_mdl
+    t, hw = int(vm.num_frames), int(vm.crop_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def frames(n_t):
+        return torch.randn((videos * 5, n_t, hw, hw, 3), generator=gen,
+                           device=dev).to(DTYPES[dtype])
+
+    batch = {"frms_ev_fast_tensor": frames(t),
+             "label_tensor": torch.zeros((videos, 5), dtype=torch.long,
+                                         device=dev)}
+    if vm.arch == "slowfast":
+        batch["frms_ev_slow_tensor"] = frames(t // int(vm.slowfast.alpha))
+    return model, opt, batch, cfg
+
+
+def bench_vb_train(videos: int = 8, iters: int = 4, accum: int = 1,
+                   device="cuda", overrides: Optional[Dict] = None) -> Dict:
+    """SlowFast-R50 8x8 verb-model training throughput (forward, backward,
+    Adam, BatchNorm statistics) in videos/s, the JAX bench's ``vbtrain``:
+    ``videos`` x 5 clips of 224 px frames a step, bf16 products, float32
+    parameters and Adam. ``accum=2`` (``vbtrain16``) takes one update every
+    two steps with the mean of their gradients (``train.grad_accum``), the
+    global batch of 16 videos. FLOPs are counted by
+    ``torch.utils.flop_counter`` over one step (forward and backward); the
+    bytes are the least a step must move: the frames read once and, per
+    parameter, the weight read, its gradient written and, at an update,
+    read with the two Adam moments read and written and the weight written
+    (4 bytes each)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    dev = resolve_device(device)
+    model, opt, batch, cfg = make_vb_train("slow_fast_nl_r50_8x8", videos,
+                                           dev, overrides)
+    count = [0]
+
+    def step():
+        loss = model(batch)["loss"]
+        (loss / accum).backward()
+        count[0] += 1
+        if count[0] % accum == 0:
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        return loss
+
+    with FlopCounterMode(display=False) as counter:
+        loss = step()
+    flops = float(counter.get_total_flops())
+    assert bool(torch.isfinite(loss)), float(loss)
+    n_params = sum(p.numel() for p in model.parameters())
+    moved = float(sum(v.numel() * v.element_size() for v in batch.values())
+                  + 4 * n_params * (2 + 6 / accum))
+    ms = float(np.median(call_ms(step, iters, dev)))
+    name = "slowfast_vb_train_throughput"
+    if accum > 1:
+        name += f"_bs{videos * accum}_accum{accum}"
+    return {
+        "metric": name,
+        "value": round(videos * 1e3 / ms, 2),
+        "unit": "videos/sec/chip" if dev.type == "cuda" else "videos/sec/cpu",
+        "device": device_name(dev),
+        "videos": videos,
+        "accum": accum,
+        "dtype": cfg.train.dtype,
+        "ms_per_step": round(ms, 3),
+        "flops_per_step": flops,
         **roofline(moved, flops, ms / 1e3, dev),
     }
 
@@ -413,9 +513,8 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
     if which in TRAINING_MODES:
         raise NotImplementedError(
             f"bench mode {which!r} measures training, which is not ported "
-            "yet: vbtrain / vbtrain16 come with the vb training slice, srl / "
-            "srl_real with vb_arg training, evrel_real with evrel "
-            "(ROADMAP.md, Queue 1)")
+            "yet: srl / srl_real come with vb_arg training, evrel_real with "
+            "evrel (ROADMAP.md, Queue 1)")
     kw = dict(device=flags["device"], overrides=overrides)
     if which == "all":
         return run_all(**kw)
@@ -425,6 +524,9 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         kw.update(zip(("bs", "iters"), sizes))
         res = bench_srl_decode(beam=5 if "5" in which else 1,
                                real_dims=which.endswith("_real"), **kw)
+    elif which in ("vbtrain", "vbtrain16"):
+        kw.update(zip(("videos", "iters"), sizes))
+        res = bench_vb_train(accum=2 if which == "vbtrain16" else 1, **kw)
     elif which == "feed":
         res = bench_host_feed(*sizes[:2])
     elif which == "gates":

@@ -33,8 +33,10 @@
 //    TF32), for the reference-precision path.
 // This kernel stays as the float32 parity instantiation and for head widths
 // the wgmma kernel does not take. wgmma, a K/V ring filled ahead of the
-// products and register accumulators are in nl_attn_fwd_wgmma, further down;
-// left for later in both: the backward.
+// products and register accumulators are in nl_attn_fwd_wgmma, further down.
+// Both forward entries can also write each query row's log-sum-exp of the
+// scaled logits, in the log2 domain (lse2 = log2 sum_j 2^(s_j scale log2 e)),
+// for the training path's backward, nl_attn_bwd, at the end of the file.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // C entry: nl_attn_fwd (after this kernel), returns cudaGetLastError().
@@ -250,8 +252,9 @@ __device__ __forceinline__ void store_out(bf16* dst, float x) {
 template <typename T, int DP>
 __global__ void __launch_bounds__(NTHREADS)
 nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                   int d, int softmax, float scale) {
+                   const T* __restrict__ v, T* __restrict__ o,
+                   float* __restrict__ lse, int sq, int sk, int d, int softmax,
+                   float scale) {
   using C = Cfg<T, DP>;
   constexpr int BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -367,6 +370,10 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (half == 0) sL[row] = l_run;
+  if (half == 0 && lse != nullptr && q0 + row < sq) {
+    // m_run is in the natural domain here (logit * scale)
+    lse[b * sq + q0 + row] = (m_run + logf(l_run)) * 1.4426950408889634f;
+  }
   __syncwarp();
   for (int r = WROWS * warp; r < WROWS * (warp + 1); ++r) {
     const int qi = q0 + r;
@@ -378,9 +385,9 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
-                   int sq, int sk, int d, int softmax, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int b, int sq, int sk, int d, int softmax,
+                   float scale, cudaStream_t stream) {
   using C = Cfg<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(
       nl_attn_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,28 +396,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + BQ - 1) / BQ, b);
   nl_attn_fwd_kernel<T, DP><<<grid, NTHREADS, C::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, softmax, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, d, softmax,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int b, int sq, int sk, int d, int softmax, float scale,
-                     cudaStream_t stream) {
-  if (d <= 64) return launch<T, 64>(q, k, v, o, b, sq, sk, d, softmax, scale, stream);
-  if (d <= 128) return launch<T, 128>(q, k, v, o, b, sq, sk, d, softmax, scale, stream);
-  if (d <= 256) return launch<T, 256>(q, k, v, o, b, sq, sk, d, softmax, scale, stream);
-  return launch<T, 512>(q, k, v, o, b, sq, sk, d, softmax, scale, stream);
+                     float* lse, int b, int sq, int sk, int d, int softmax,
+                     float scale, cudaStream_t stream) {
+  if (d <= 64) return launch<T, 64>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, stream);
+  if (d <= 128) return launch<T, 128>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, stream);
+  if (d <= 256) return launch<T, 256>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, stream);
+  return launch<T, 512>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: device pointers (16-byte aligned, contiguous). kind: 0 softmax,
-// 1 dot_product. is_bf16: 1 bf16, 0 float32. Requires 1 <= d <= 512,
-// d % 8 == 0, sk >= 1, 1 <= b <= 65535. Returns a cudaError_t.
+// q, k, v, o: device pointers (16-byte aligned, contiguous). lse: null, or
+// (b, sq) float32 that receives each row's log-sum-exp (log2 domain) under
+// softmax. kind: 0 softmax, 1 dot_product. is_bf16: 1 bf16, 0 float32.
+// Requires 1 <= d <= 512, d % 8 == 0, sk >= 1, 1 <= b <= 65535. Returns a
+// cudaError_t.
 extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                           int b, int sq, int sk, int d, int kind, float scale,
-                           int is_bf16, void* stream) {
+                           float* lse, int b, int sq, int sk, int d, int kind,
+                           float scale, int is_bf16, void* stream) {
   if (b < 1 || b > 65535 || sq < 0 || sk < 1 || d < 8 || d > 512 || d % 8 != 0 ||
       (kind != 0 && kind != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -418,8 +428,8 @@ extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
   if (sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int softmax = kind == 0;
-  return (int)(is_bf16 ? launch_d<bf16>(q, k, v, o, b, sq, sk, d, softmax, scale, s)
-                       : launch_d<float>(q, k, v, o, b, sq, sk, d, softmax, scale, s));
+  return (int)(is_bf16 ? launch_d<bf16>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s)
+                       : launch_d<float>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s));
 }
 
 // ===========================================================================
@@ -462,8 +472,10 @@ extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
 //  * exp2 with scale * log2(e) folded into one factor; dot_product skips the
 //    softmax and multiplies S by 1 / Sk before the bf16 conversion;
 //  * the epilogue divides by the row sum in registers and stores bf16 through
-//    shared memory (the dead Q and ring space) with 16-byte stores.
-// Left for later: the backward; TMA loads from a producer warp, which would
+//    shared memory (the dead Q and ring space) with 16-byte stores; when
+//    asked, it also writes the row's log-sum-exp, m + log2(l), for the
+//    backward.
+// Left for later: TMA loads from a producer warp, which would
 // free the registers for a second S accumulator (the next tile's S product
 // under this tile's softmax, within one warpgroup).
 //
@@ -802,7 +814,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                         int sq, int sk, int softmax, float scale) {
+                         float* __restrict__ lse, int sq, int sk, int softmax,
+                         float scale) {
   using C = Cfg<D>;
   constexpr int BK = C::BK;
   constexpr int NO = C::NO;
@@ -976,6 +989,12 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         inv = 1.f / l;
+        // both warpgroups hold the same rows' statistics at d = 512
+        const int qi = q0 + grow + 16 * warp + (lane >> 2) + 8 * h;
+        if (lse != nullptr && quad == 0 && (!C::kSplit || group == 0) &&
+            qi < sq) {
+          lse[b * sq + qi] = m_run[h] + log2f(l);
+        }
       }
       unsigned char* row =
           smem + (size_t)(grow + 16 * warp + (lane >> 2) + 8 * h) * C::LDO;
@@ -999,8 +1018,8 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
-                   int sq, int sk, int softmax, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int b, int sq, int sk, int softmax, float scale,
                    cudaStream_t stream) {
   using C = Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1010,19 +1029,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((sq + C::QROWS - 1) / C::QROWS, b);
   nl_attn_fwd_wgmma_kernel<D><<<grid, kThreads, C::kBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, softmax,
-      scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk,
+      softmax, scale);
   return cudaGetLastError();
 }
 
 }  // namespace wg
 
 // The wgmma kernel: bf16 only. q, k, v, o: device pointers (16-byte aligned,
-// contiguous). kind: 0 softmax, 1 dot_product. Requires d in {64, 128, 256,
-// 512}, sk >= 1, 1 <= b <= 65535; anything else is cudaErrorInvalidValue.
+// contiguous). lse: null, or (b, sq) float32 for the rows' log-sum-exp (log2
+// domain) under softmax. kind: 0 softmax, 1 dot_product. Requires d in {64,
+// 128, 256, 512}, sk >= 1, 1 <= b <= 65535; anything else is
+// cudaErrorInvalidValue.
 extern "C" int nl_attn_fwd_wgmma(const void* q, const void* k, const void* v,
-                                 void* o, int b, int sq, int sk, int d,
-                                 int kind, float scale, void* stream) {
+                                 void* o, float* lse, int b, int sq, int sk,
+                                 int d, int kind, float scale, void* stream) {
   if (b < 1 || b > 65535 || sq < 0 || sk < 1 || (kind != 0 && kind != 1)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1030,10 +1051,452 @@ extern "C" int nl_attn_fwd_wgmma(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int softmax = kind == 0;
   switch (d) {
-    case 64: return (int)wg::launch<64>(q, k, v, o, b, sq, sk, softmax, scale, s);
-    case 128: return (int)wg::launch<128>(q, k, v, o, b, sq, sk, softmax, scale, s);
-    case 256: return (int)wg::launch<256>(q, k, v, o, b, sq, sk, softmax, scale, s);
-    case 512: return (int)wg::launch<512>(q, k, v, o, b, sq, sk, softmax, scale, s);
+    case 64: return (int)wg::launch<64>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+    case 128: return (int)wg::launch<128>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+    case 256: return (int)wg::launch<256>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+    case 512: return (int)wg::launch<512>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ===========================================================================
+// nl_attn_bwd: the gradient of the same function, for the training path.
+//
+// The TPU package has no backward kernel: training there runs jax.grad of
+// the einsum version (vidsitu_tpu/ops/attention.py:121 _einsum_attention),
+// which is what this matches. Given Q, K, V, the forward's output O, the
+// output gradient dO and, for softmax, each query row's log-sum-exp lse2
+// (log2 domain, written by either forward entry), it computes
+//   softmax:     P = 2^(Q K^T scale log2 e - lse2), D = rowsum(dO o O),
+//                dP = dO V^T, dS = scale P o (dP - D),
+//                dV = P^T dO, dK = dS^T Q, dQ = dS K;
+//   dot_product: P = Q K^T / Sk, dS = dO V^T / Sk, the same three products;
+// float32 logits and accumulators, dQ / dK / dV in the inputs' type.
+//
+// What bounds it on an H100: five Sq x Sk x d products (S, dP, dV, dK, dQ),
+// 5.0e11 operations at the I3D-NL stage-3 shape for 80 clips against 0.64 GB
+// of q / k / v / o / dO and gradients in bf16: bound by operations, as the
+// forward. The (Sq x Sk) matrices P and dS are the bytes worth avoiding.
+//
+// What the design does about it, simply (FlashAttention-2's layout, no
+// atomics, so every result is deterministic):
+//  * three launches on the caller's stream: D as one warp per row, then a
+//    pass over key tiles that streams every query tile past its K and V and
+//    accumulates dK and dV, then a pass over query tiles that streams every
+//    key tile past its Q and dO and accumulates dQ. S and dP are computed in
+//    both passes (seven products instead of five), and never leave the SM;
+//  * the accumulators (float32) and every tile live in shared memory; the
+//    products are WMMA 16x16x16 on bf16 with float32 accumulation (8 warps
+//    take the 16x16 output tiles in turn), plain FMA in float32;
+//  * P and dS are rounded to the input type before the products that take
+//    them, as the forward rounds P;
+//  * the tiles are sized to the shared memory at each head width: at d = 512
+//    a 64-row tile of K, V, Q and dO alone is 256 KB, so the dK / dV pass
+//    keeps 16 keys against 32 queries there.
+// Left for later: wgmma with register accumulators, a cp.async ring, and S
+// computed once for both passes.
+//
+// C entry: nl_attn_bwd (bottom of file), returns cudaGetLastError().
+
+namespace bwd {
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// Tiles of the two passes for element type T, head width DP (d rounded up to
+// 64, 128, 256 or 512) and pass (KV: dK / dV, else dQ). NA rows belong to the
+// block (keys for KV, queries for dQ), NS rows stream past them. S and dP are
+// always (query rows x key columns).
+template <typename T, int DP, bool KV>
+struct Cfg {
+  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr int NA = kBf16 ? (DP >= 512 ? (KV ? 16 : 32)
+                                     : DP == 256 ? (KV ? 32 : 64) : 64)
+                                  : (DP >= 512 ? 16 : 32);
+  static constexpr int NS = kBf16 ? (DP >= 512 ? 32
+                                     : DP == 256 ? (KV ? 64 : 32) : 64)
+                                  : (DP >= 512 ? 16 : 32);
+  static constexpr int NACC = KV ? 2 : 1;       // float accumulators
+  static constexpr int QROWS = KV ? NS : NA;    // query rows of S
+  static constexpr int KCOLS = KV ? NA : NS;    // key columns of S
+  static constexpr int LDT = DP + 16 / (int)sizeof(T);  // input tiles (T)
+  static constexpr int LDA = DP + 4;                    // accumulators
+  static constexpr int LDS = KCOLS + 4;                 // S, dP (float)
+  static constexpr int LDP = KCOLS + 16 / (int)sizeof(T);  // P, dS (T)
+  static constexpr size_t kOwn = 0;
+  static constexpr size_t kAcc = kOwn + align128(sizeof(T) * 2 * NA * LDT);
+  static constexpr size_t kStr =
+      kAcc + align128(sizeof(float) * NACC * NA * LDA);
+  static constexpr size_t kS = kStr + align128(sizeof(T) * 2 * NS * LDT);
+  static constexpr size_t kdP = kS + align128(sizeof(float) * QROWS * LDS);
+  static constexpr size_t kP = kdP + align128(sizeof(float) * QROWS * LDS);
+  static constexpr size_t kdS = kP + align128(sizeof(T) * QROWS * LDP);
+  static constexpr size_t kStat = kdS + align128(sizeof(T) * QROWS * LDP);
+  static constexpr size_t kBytes = kStat + sizeof(float) * 2 * QROWS;
+  static_assert(kBytes <= 232448, "tiles exceed the SM's shared memory");
+  static_assert(NA % 16 == 0 && NS % 16 == 0, "WMMA tiles");
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Rows [row0, row0 + ROWS) of a (nrows, d) row-major matrix into a shared
+// tile of pitch LD, 16 bytes per thread and step; rows past nrows and
+// columns past d (up to DP) are zero-filled.
+template <typename T, int DP, int ROWS, int LD>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
+                                          int nrows, int d) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CHUNKS = DP / VEC;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += kBwdThreads) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * VEC;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < nrows && c < d) {
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  }
+}
+
+// C (M x N, float) = or += op(A) op(B), op(A) M x K, op(B) K x N. A is
+// stored M x K row-major, or K x M when TA (its transpose is used); B is
+// stored K x N, or N x K when TB. bf16: WMMA, the warps take the 16x16
+// output tiles in turn; the accumulator passes through shared memory.
+template <int M, int N, int K, bool TA, bool TB, bool ACC>
+__device__ __forceinline__ void mma_block(float* C, int ldc, const bf16* A,
+                                          int lda, const bf16* B, int ldb) {
+  using LA = typename std::conditional<TA, wmma::col_major,
+                                       wmma::row_major>::type;
+  using LB = typename std::conditional<TB, wmma::col_major,
+                                       wmma::row_major>::type;
+  constexpr int TN = N / 16;
+  const int warp = threadIdx.x / 32;
+  for (int t = warp; t < (M / 16) * TN; t += kBwdWarps) {
+    const int i = t / TN;
+    const int j = t % TN;
+    float* c = C + 16 * i * ldc + 16 * j;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    if (ACC) {
+      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
+    } else {
+      wmma::fill_fragment(acc, 0.f);
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < K / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
+      wmma::load_matrix_sync(
+          a, TA ? A + 16 * kk * lda + 16 * i : A + 16 * i * lda + 16 * kk, lda);
+      wmma::load_matrix_sync(
+          b, TB ? B + 16 * j * ldb + 16 * kk : B + 16 * kk * ldb + 16 * j, ldb);
+      wmma::mma_sync(acc, a, b, acc);
+    }
+    wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
+  }
+}
+
+// The same in float32 with FMA, one output element per thread and step.
+template <int M, int N, int K, bool TA, bool TB, bool ACC>
+__device__ __forceinline__ void mma_block(float* C, int ldc, const float* A,
+                                          int lda, const float* B, int ldb) {
+  for (int e = threadIdx.x; e < M * N; e += kBwdThreads) {
+    const int m = e / N;
+    const int n = e % N;
+    float s = ACC ? C[m * ldc + n] : 0.f;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+      const float a = TA ? A[k * lda + m] : A[m * lda + k];
+      const float b = TB ? B[n * ldb + k] : B[k * ldb + n];
+      s = fmaf(a, b, s);
+    }
+    C[m * ldc + n] = s;
+  }
+}
+
+// From S and dP (R query rows x CC key columns, float): P (when sP is set)
+// and dS, rounded to T; zero outside the (Sq, Sk) rectangle.
+template <typename T, int R, int CC>
+__device__ __forceinline__ void probs_and_ds(
+    const float* sS, const float* sdP, int lds, T* sP, T* sdS, int ldp,
+    const float* sLse, const float* sD, int q0, int sq, int k0, int sk,
+    int softmax, float c2, float scale, float inv_sk) {
+  for (int e = threadIdx.x; e < R * CC; e += kBwdThreads) {
+    const int r = e / CC;
+    const int c = e % CC;
+    float p = 0.f;
+    float ds = 0.f;
+    if (q0 + r < sq && k0 + c < sk) {
+      const float s = sS[r * lds + c];
+      const float dp = sdP[r * lds + c];
+      if (softmax) {
+        p = exp2f(s * c2 - sLse[r]);
+        ds = scale * p * (dp - sD[r]);
+      } else {
+        p = s * inv_sk;
+        ds = dp * inv_sk;
+      }
+    }
+    if (sP != nullptr) sP[r * ldp + c] = from_f32<T>(p);
+    sdS[r * ldp + c] = from_f32<T>(ds);
+  }
+}
+
+// Rows [row0, row0 + ROWS) of an accumulator (pitch lda) into a (nrows, d)
+// row-major matrix of T; rows past nrows are not stored.
+template <typename T, int ROWS>
+__device__ __forceinline__ void store_tile(T* dst, const float* acc, int lda,
+                                           int row0, int nrows, int d) {
+  for (int i = threadIdx.x; i < ROWS * d; i += kBwdThreads) {
+    const int r = i / d;
+    const int c = i % d;
+    if (row0 + r < nrows) {
+      dst[(size_t)(row0 + r) * d + c] = from_f32<T>(acc[r * lda + c]);
+    }
+  }
+}
+
+// D = rowsum(dO o O) in float32, one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+nl_attn_bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                          float* __restrict__ delta, int rows, int d) {
+  const int row = blockIdx.x * kBwdWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* a = o + (size_t)row * d;
+  const T* g = dout + (size_t)row * d;
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) s = fmaf(to_f32(a[c]), to_f32(g[c]), s);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+// Loads the statistics of query rows [q0, q0 + ROWS); zeros past Sq and
+// for dot_product.
+template <int ROWS>
+__device__ __forceinline__ void load_stats(float* sLse, float* sD,
+                                           const float* lse,
+                                           const float* delta, size_t b,
+                                           int q0, int sq, int softmax) {
+  for (int r = threadIdx.x; r < ROWS; r += kBwdThreads) {
+    const bool ok = softmax && q0 + r < sq;
+    sLse[r] = ok ? lse[b * sq + q0 + r] : 0.f;
+    sD[r] = ok ? delta[b * sq + q0 + r] : 0.f;
+  }
+}
+
+// dK and dV of one key tile: every query tile streams past it.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBwdThreads)
+nl_attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int sq, int sk, int d, int softmax,
+                      float scale) {
+  using C = Cfg<T, DP, true>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem + C::kOwn);
+  T* sV = sK + C::NA * C::LDT;
+  float* accK = reinterpret_cast<float*>(smem + C::kAcc);
+  float* accV = accK + C::NA * C::LDA;
+  T* sQ = reinterpret_cast<T*>(smem + C::kStr);
+  T* sdO = sQ + C::NS * C::LDT;
+  float* sS = reinterpret_cast<float*>(smem + C::kS);
+  float* sdP = reinterpret_cast<float*>(smem + C::kdP);
+  T* sP = reinterpret_cast<T*>(smem + C::kP);
+  T* sdS = reinterpret_cast<T*>(smem + C::kdS);
+  float* sLse = reinterpret_cast<float*>(smem + C::kStat);
+  float* sD = sLse + C::QROWS;
+
+  const int k0 = blockIdx.x * C::NA;
+  const size_t b = blockIdx.y;
+  const T* qb = q + b * sq * d;
+  const T* dob = dout + b * sq * d;
+  load_tile<T, DP, C::NA, C::LDT>(sK, k + b * sk * d, k0, sk, d);
+  load_tile<T, DP, C::NA, C::LDT>(sV, v + b * sk * d, k0, sk, d);
+  for (int i = threadIdx.x; i < 2 * C::NA * C::LDA; i += kBwdThreads) {
+    accK[i] = 0.f;
+  }
+  const float c2 = scale * 1.4426950408889634f;
+  const float inv_sk = 1.f / (float)sk;
+  for (int q0 = 0; q0 < sq; q0 += C::NS) {
+    __syncthreads();  // the previous tile's products are done
+    load_tile<T, DP, C::NS, C::LDT>(sQ, qb, q0, sq, d);
+    load_tile<T, DP, C::NS, C::LDT>(sdO, dob, q0, sq, d);
+    load_stats<C::NS>(sLse, sD, lse, delta, b, q0, sq, softmax);
+    __syncthreads();
+    mma_block<C::NS, C::NA, DP, false, true, false>(sS, C::LDS, sQ, C::LDT,
+                                                    sK, C::LDT);
+    mma_block<C::NS, C::NA, DP, false, true, false>(sdP, C::LDS, sdO, C::LDT,
+                                                    sV, C::LDT);
+    __syncthreads();
+    probs_and_ds<T, C::NS, C::NA>(sS, sdP, C::LDS, sP, sdS, C::LDP, sLse, sD,
+                                  q0, sq, k0, sk, softmax, c2, scale, inv_sk);
+    __syncthreads();
+    mma_block<C::NA, DP, C::NS, true, false, true>(accV, C::LDA, sP, C::LDP,
+                                                   sdO, C::LDT);
+    mma_block<C::NA, DP, C::NS, true, false, true>(accK, C::LDA, sdS, C::LDP,
+                                                   sQ, C::LDT);
+  }
+  __syncthreads();
+  store_tile<T, C::NA>(dk + b * sk * d, accK, C::LDA, k0, sk, d);
+  store_tile<T, C::NA>(dv + b * sk * d, accV, C::LDA, k0, sk, d);
+}
+
+// dQ of one query tile: every key tile streams past it.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBwdThreads)
+nl_attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq,
+                     int sq, int sk, int d, int softmax, float scale) {
+  using C = Cfg<T, DP, false>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem + C::kOwn);
+  T* sdO = sQ + C::NA * C::LDT;
+  float* accQ = reinterpret_cast<float*>(smem + C::kAcc);
+  T* sK = reinterpret_cast<T*>(smem + C::kStr);
+  T* sV = sK + C::NS * C::LDT;
+  float* sS = reinterpret_cast<float*>(smem + C::kS);
+  float* sdP = reinterpret_cast<float*>(smem + C::kdP);
+  T* sdS = reinterpret_cast<T*>(smem + C::kdS);
+  float* sLse = reinterpret_cast<float*>(smem + C::kStat);
+  float* sD = sLse + C::QROWS;
+
+  const int q0 = blockIdx.x * C::NA;
+  const size_t b = blockIdx.y;
+  const T* kb = k + b * sk * d;
+  const T* vb = v + b * sk * d;
+  load_tile<T, DP, C::NA, C::LDT>(sQ, q + b * sq * d, q0, sq, d);
+  load_tile<T, DP, C::NA, C::LDT>(sdO, dout + b * sq * d, q0, sq, d);
+  load_stats<C::NA>(sLse, sD, lse, delta, b, q0, sq, softmax);
+  for (int i = threadIdx.x; i < C::NA * C::LDA; i += kBwdThreads) {
+    accQ[i] = 0.f;
+  }
+  const float c2 = scale * 1.4426950408889634f;
+  const float inv_sk = 1.f / (float)sk;
+  for (int k0 = 0; k0 < sk; k0 += C::NS) {
+    __syncthreads();  // the previous tile's products are done
+    load_tile<T, DP, C::NS, C::LDT>(sK, kb, k0, sk, d);
+    load_tile<T, DP, C::NS, C::LDT>(sV, vb, k0, sk, d);
+    __syncthreads();
+    mma_block<C::NA, C::NS, DP, false, true, false>(sS, C::LDS, sQ, C::LDT,
+                                                    sK, C::LDT);
+    mma_block<C::NA, C::NS, DP, false, true, false>(sdP, C::LDS, sdO, C::LDT,
+                                                    sV, C::LDT);
+    __syncthreads();
+    probs_and_ds<T, C::NA, C::NS>(sS, sdP, C::LDS, static_cast<T*>(nullptr),
+                                  sdS, C::LDP, sLse, sD, q0, sq, k0, sk,
+                                  softmax, c2, scale, inv_sk);
+    __syncthreads();
+    mma_block<C::NA, DP, C::NS, false, false, true>(accQ, C::LDA, sdS, C::LDP,
+                                                    sK, C::LDT);
+  }
+  __syncthreads();
+  store_tile<T, C::NA>(dq + b * sq * d, accQ, C::LDA, q0, sq, d);
+}
+
+template <typename T, int DP>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int b, int sq,
+                   int sk, int d, int softmax, float scale,
+                   cudaStream_t stream) {
+  using KV = Cfg<T, DP, true>;
+  using Q = Cfg<T, DP, false>;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  if (softmax) {
+    const int rows = b * sq;
+    nl_attn_bwd_rowdot_kernel<T>
+        <<<(rows + kBwdWarps - 1) / kBwdWarps, kBwdThreads, 0, stream>>>(
+            static_cast<const T*>(o), tdo, delta, rows, d);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      nl_attn_bwd_kv_kernel<T, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KV::kBytes);
+  if (err != cudaSuccess) return err;
+  nl_attn_bwd_kv_kernel<T, DP>
+      <<<dim3((sk + KV::NA - 1) / KV::NA, b), kBwdThreads, KV::kBytes,
+         stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+                   static_cast<T*>(dv), sq, sk, d, softmax, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(nl_attn_bwd_q_kernel<T, DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Q::kBytes);
+  if (err != cudaSuccess) return err;
+  nl_attn_bwd_q_kernel<T, DP>
+      <<<dim3((sq + Q::NA - 1) / Q::NA, b), kBwdThreads, Q::kBytes, stream>>>(
+          tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), sq, sk, d,
+          softmax, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int b, int sq,
+                     int sk, int d, int softmax, float scale,
+                     cudaStream_t stream) {
+  if (d <= 64) {
+    return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
+                         d, softmax, scale, stream);
+  }
+  if (d <= 128) {
+    return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
+                          d, softmax, scale, stream);
+  }
+  if (d <= 256) {
+    return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
+                          d, softmax, scale, stream);
+  }
+  return launch<T, 512>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
+                        d, softmax, scale, stream);
+}
+
+}  // namespace bwd
+
+// The backward. q, k, v, o, dout (the output's gradient), dq, dk, dv: device
+// pointers of the forward's type (16-byte aligned, contiguous), q / o / dout
+// / dq (b, sq, d), k / v / dk / dv (b, sk, d). lse: the forward's (b, sq)
+// float32 log-sum-exp, delta: (b, sq) float32 scratch; both are needed for
+// softmax and unused (may be null) for dot_product. kind: 0 softmax,
+// 1 dot_product. is_bf16: 1 bf16, 0 float32. Requires 8 <= d <= 512,
+// d % 8 == 0, sq >= 1, sk >= 1, 1 <= b <= 65535. Three launches on the
+// stream; returns a cudaError_t.
+extern "C" int nl_attn_bwd(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const float* lse,
+                           float* delta, void* dq, void* dk, void* dv, int b,
+                           int sq, int sk, int d, int kind, float scale,
+                           int is_bf16, void* stream) {
+  if (b < 1 || b > 65535 || sq < 1 || sk < 1 || d < 8 || d > 512 ||
+      d % 8 != 0 || (kind != 0 && kind != 1) ||
+      (kind == 0 && (lse == nullptr || delta == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int softmax = kind == 0;
+  return (int)(is_bf16
+                   ? bwd::launch_d<bf16>(q, k, v, o, dout, lse, delta, dq, dk,
+                                         dv, b, sq, sk, d, softmax, scale, s)
+                   : bwd::launch_d<float>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, b, sq, sk, d, softmax, scale,
+                                          s));
 }

@@ -2,7 +2,17 @@
 --key=val ...`` (the surface of the JAX package's main.py: a run id plus
 dotted-key config overrides; reference main_dist.py:132-172).
 
-This slice evaluates ``vb_arg`` (SRL decoding) on one device::
+One process, one device. Verb prediction trains and validates::
+
+    python -m vidsitu_tpu_torch.main vb_run --task_type=vb \\
+        --mdl.mdl_name=sf_base --mdl.sf_mdl_name=i3d_r50_nl_8x8 --device=cuda
+
+``train.epochs`` epochs, each validated with ``EvalB``; the best model goes
+to ``{misc.tmp_path}/models/{uid}.ckpt`` and ``--train.resume=True`` with
+the same uid resumes it (optimizer included with ``train.load_opt``). Then
+the best model is validated once more (``run_final_val``). ``--only_val``,
+``--only_test`` and ``--overfit_batch`` as in the JAX package. SRL decoding
+evaluates ``vb_arg``::
 
     python -m vidsitu_tpu_torch.main srl_eval --task_type=vb_arg \\
         --only_val=True --device=cuda --weights=srl_state_dict.pt
@@ -13,19 +23,17 @@ Port-only flags, given in the same ``--key=value`` form:
     visible, never falls back to the CPU);
   * ``--weights``: a torch file holding the port model's ``state_dict``;
   * ``--allow_random_weights=True``: seeded random weights from
-    ``train.seed`` instead (smoke tests only).
+    ``train.seed`` instead, for SRL decoding (smoke tests only).
 
 Predictions go to ``{misc.tmp_path}/predictions/{uid}/{dl_name}_0.pkl``.
-Training raises ``NotImplementedError`` until its slice is ported.
+SRL training and evrel raise ``NotImplementedError`` until their slices
+are ported.
 """
 
 from __future__ import annotations
 
 import sys
-from pathlib import Path
 from typing import Any, Dict, List, Optional
-
-import torch
 
 PORT_FLAGS = ("device", "weights", "allow_random_weights")
 
@@ -48,67 +56,41 @@ def parse_cli(argv: List[str]):
     return uid, overrides, flags
 
 
-def load_weights(model: torch.nn.Module, cfg, weights: str,
-                 allow_random: bool) -> None:
-    """Load ``weights`` (a state_dict file) strictly, or seeded random
-    weights when explicitly allowed."""
-    from .convert.from_flax import flax_to_state_dict, seeded_variables
-
-    if weights:
-        sd = torch.load(weights, map_location="cpu", weights_only=True)
-    elif allow_random:
-        sd = flax_to_state_dict(seeded_variables(model, int(cfg.train.seed)))
-    else:
-        # decoding random weights yields noise scored as if it were a model
-        raise SystemExit(
-            "--weights is required (pass --allow_random_weights=True to "
-            "decode from seeded random weights, e.g. for smoke tests)")
-    model.load_state_dict(sd, strict=True)
-
-
 def main_fn(cfg, uid: str, device, weights: str = "",
             allow_random: bool = False) -> Dict[str, Any]:
-    """Run the evaluations ``cfg`` asks for. Returns the results by loader
-    name, the evaluator (which holds the per-batch times and the generator,
-    with its model and decode-step counts), the predictions directory and
-    the config."""
-    from .data import get_data
-    from .evaluation.evaluators import EvalB_Gen
-    from .extract import resolve_device
-    from .models.selector import build_model, build_srl_generate_fn
+    """Run what ``cfg`` asks for (main.py:38-69). Returns the validation
+    results by loader name as (loss, metrics), the evaluator, the
+    predictions directory, the config and the Learner."""
+    from .train.build import build_learner, is_training
 
-    if cfg.task_type != "vb_arg":
-        raise NotImplementedError(
-            f"task_type {cfg.task_type!r}: this port evaluates vb_arg only; "
-            "vb training, SRL training and evrel are the next slices "
-            "(ROADMAP.md, Queue 1)")
-    if not (cfg.only_val or cfg.only_test):
-        raise NotImplementedError(
-            "training is not ported yet: SRL training comes after the vb "
-            "training slice (ROADMAP.md, Queue 1); pass --only_val=True or "
-            "--only_test=True")
-    dev = resolve_device(device)
-    data = get_data(cfg)
-    comm = data.valid_dl.dataset.comm
-    model = build_model(cfg, comm)
-    load_weights(model, cfg, weights, allow_random)
-    model.to(dev).eval()
-    evaluator = EvalB_Gen(
-        cfg, comm, build_srl_generate_fn(cfg, comm, model), dev,
-        split_type="valid" if not cfg.only_test else "test_srl")
-    pred_dir = Path(cfg.misc.tmp_path) / "predictions" / uid
+    learner = build_learner(cfg, uid, device, weights, allow_random)
     results: Dict[str, Any] = {}
-    if cfg.only_val:
-        results[cfg.val_dl_name] = evaluator(data.valid_dl, cfg.val_dl_name,
-                                             pred_dir)
-    if cfg.only_test:
-        results[cfg.test_dl_name] = evaluator(data.test_dl, cfg.test_dl_name,
-                                              pred_dir)
+    if is_training(cfg):
+        learner.fit(epochs=cfg.train.epochs, lr=cfg.train.lr)
+        # preempted: the state is saved; skip the final validation so that
+        # the process exits inside the grace period
+        if not learner._preempt_requested and cfg.run_final_val:
+            print("Running Final Validation using best model")
+            learner.load_model_dict(str(learner.model_file), load_opt=False)
+            loss, acc, _ = learner.validate(write_to_file=True)
+            results[cfg.val_dl_name] = (loss, acc)
+    else:
+        if cfg.overfit_batch:
+            learner.overfit_batch(cfg.train.epochs, 1e-4)
+        if cfg.only_val:
+            loss, acc, _ = learner.validate(write_to_file=True)
+            results[cfg.val_dl_name] = (loss, acc)
+        if cfg.only_test:
+            loss, acc, _ = learner.validate(
+                db={cfg.test_dl_name: learner.data.test_dl},
+                write_to_file=True)
+            results[cfg.test_dl_name] = (loss, acc)
     for name, (loss, acc) in results.items():
         print(name, loss)
         print(name, acc)
-    return {"results": results, "evaluator": evaluator,
-            "pred_dir": pred_dir, "cfg": cfg}
+    return {"results": results, "evaluator": learner.eval_fn,
+            "pred_dir": learner.predictions_dir, "cfg": cfg,
+            "learner": learner}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:

@@ -19,17 +19,20 @@ def compute_dtypes(cfg):
 
 
 def build_model(cfg, comm):
-    """The ``vb_arg`` model for ``cfg`` (the ``vb`` model is built by
-    ``vb_models.build_vb_model``). Parameters are made in float32, the
-    products run in ``train.dtype``."""
+    """The model for ``cfg``: the ``vb`` verb model or a ``vb_arg`` model.
+    Parameters are made in float32, the products run in ``train.dtype``."""
     from .srl_models import SRL_MDL_NAMES, FEAT_MDLS, SRLModel, get_head_dim
     from .transformer import TxConfig
 
     task, mdl_name = cfg.task_type, cfg.mdl.mdl_name
+    if task == "vb":
+        from .vb_models import build_vb_model
+
+        return build_vb_model(cfg, comm)
     if task != "vb_arg":
         raise NotImplementedError(
-            f"task_type {task!r}: build_model builds the vb_arg models; evrel "
-            "comes after the vb and SRL training slices (ROADMAP.md, Queue 1)")
+            f"task_type {task!r}: build_model builds the vb and vb_arg models; "
+            "evrel comes after the SRL training slice (ROADMAP.md, Queue 1)")
     if mdl_name not in SRL_MDL_NAMES:
         raise ValueError(f"unknown vb_arg model {mdl_name}")
     dtype, _ = compute_dtypes(cfg)
@@ -56,6 +59,16 @@ def build_model(cfg, comm):
         tx_enc_type=cfg.mdl.tx_enc_type,
         feat_dim=get_head_dim(cfg) if mdl_name in FEAT_MDLS else 0,
     )
+
+
+def init_model_variables(model, seed: int = 0):
+    """flax's default initial values for a verb model, drawn from ``seed``
+    (``video_backbone.init_like_flax``); returns the model. The JAX package
+    draws them with ``model.init`` from ``PRNGKey(seed)``: the values differ,
+    the distributions and the zero-initialised scales match."""
+    from .video_backbone import init_like_flax
+
+    return init_like_flax(model, seed)
 
 
 def build_srl_generate_fn(cfg, comm, model):

@@ -46,11 +46,15 @@ def get_head_dim(full_cfg) -> int:
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          pad_id: int) -> torch.Tensor:
-    """Mean CE over non-pad labels (F.cross_entropy(ignore_index=pad)),
-    in float32."""
+    """Mean CE over non-pad labels, in float32, 0 when every label is
+    pad. The pad label is replaced by class 0 before the gather and masked
+    after it, so a pad id outside the classes (the verb task's -1) works as
+    it does in the JAX package."""
+    labels = labels.reshape(-1)
+    mask = labels != pad_id
     ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                         labels.reshape(-1), reduction="none")
-    mask = (labels.reshape(-1) != pad_id).float()
+                         torch.where(mask, labels, 0), reduction="none")
+    mask = mask.float()
     return (ce * mask).sum() / mask.sum().clamp(min=1.0)
 
 

@@ -1,8 +1,10 @@
 """Verb-prediction model (SFBase analog, mdl_sf_base.py:116-231) and the
 feature-extraction model (vidsitu_code/feat_extractor.py:77-112).
 
-Port of vidsitu_tpu/models/vb_models.py, inference only: ``forward``
-returns the verb logits, and the loss comes with the training slice.
+Port of vidsitu_tpu/models/vb_models.py. ``forward`` returns the verb
+logits, and the verb loss when the batch carries ``label_tensor``; the
+module's mode is flax's ``deterministic`` flag (``train()``: BatchNorm on
+batch statistics). Parameters are float32, products run in ``train.dtype``.
 """
 
 from __future__ import annotations
@@ -14,12 +16,12 @@ from torch import nn
 
 from .common import MLP
 from .selector import compute_dtypes
+from .srl_models import masked_cross_entropy
 from .video_backbone import (
     ResNet3DBackbone,
     SlowFastBackbone,
     VideoCfg,
     backbone_out_dim,
-    to_compute_dtype,
     trimmed_head,
 )
 
@@ -75,7 +77,8 @@ class VbVideoModel(nn.Module):
             self.backbone = ResNet3DBackbone(vid_cfg)
         if num_classes > 0:
             din = backbone_out_dim(vid_cfg)
-            self.proj_head = MLP(din, [din // 2, num_classes])
+            self.proj_head = MLP(din, [din // 2, num_classes],
+                                 dtype=vid_cfg.dtype)
 
     def clip_features(self, inp: Dict[str, torch.Tensor]) -> torch.Tensor:
         """(N, D) pooled per-clip features from (N, T, H, W, C) frames (or
@@ -98,23 +101,37 @@ class VbVideoModel(nn.Module):
         feats = self.features(inp)
         if self.num_classes == 0:
             return {"feats": feats}
-        return {"mdl_out": self.proj_head(feats)}  # (B, 5, V)
+        logits = self.proj_head(feats)  # (B, 5, V)
+        out = {"mdl_out": logits}
+        if "label_tensor" in inp:
+            # plain CE over the B*5 events (LossB, mdl_sf_base.py:219-231)
+            out["loss"] = masked_cross_entropy(
+                logits.reshape(-1, self.num_classes),
+                inp["label_tensor"].reshape(-1), pad_id=-1)
+        return out
 
 
 def _build(cfg, num_classes: int) -> VbVideoModel:
-    dtype, _ = compute_dtypes(cfg)
-    vid_cfg = VideoCfg.from_cfg(cfg.vid_mdl, dtype=dtype)
-    model = VbVideoModel(vid_cfg, num_classes=num_classes)
-    return to_compute_dtype(model, dtype).eval()
+    dtype, param_dtype = compute_dtypes(cfg)
+    if param_dtype != torch.float32:
+        raise NotImplementedError(
+            f"train.param_dtype {cfg.train.param_dtype}: the port keeps "
+            "float32 parameters")
+    vid_cfg = VideoCfg.from_cfg(
+        cfg.vid_mdl, dtype=dtype, remat=cfg.train.remat,
+        remat_stages=cfg.train.remat_stages,
+        bn_f32_stats=cfg.train.bn_f32_stats)
+    return VbVideoModel(vid_cfg, num_classes=num_classes).eval()
 
 
 def build_vb_model(cfg, comm) -> VbVideoModel:
-    """SFBase with its verb head, in eval mode, weights in the compute
-    dtype (BatchNorm in float32)."""
+    """SFBase with its verb head, in eval mode: float32 parameters, products
+    in ``train.dtype``; ``train.remat`` / ``remat_stages`` /
+    ``bn_f32_stats`` as the JAX package reads them."""
     return _build(cfg, len(comm.vb_id_vocab))
 
 
 def build_feat_extractor(cfg) -> VbVideoModel:
-    """The feature extractor, in eval mode, weights in the compute dtype
-    (BatchNorm in float32)."""
+    """The feature extractor, in eval mode: float32 parameters, products in
+    ``train.dtype``."""
     return _build(cfg, 0)

@@ -4,9 +4,18 @@ SlowFast.
 Port of vidsitu_tpu/models/video_backbone.py, which re-implements the
 SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
 
-  * Inference only: BatchNorm uses its running statistics (call ``eval()``).
-    The JAX package's ``remat`` / ``remat_stages`` / ``bn_f32_stats`` knobs
-    concern training and are not carried over yet.
+  * Both modes, as flax's ``train`` flag: ``eval()`` normalizes with the
+    running statistics; ``train()`` with the batch statistics (biased
+    variance, reduced in float32 unless ``bn_f32_stats`` is off) and updates
+    the running ones as flax does, ``ra <- 0.9 ra + 0.1 batch``, the biased
+    variance included (:class:`BatchNorm3d`).
+  * Parameters stay in their own dtype (float32) and products run in the
+    compute dtype: each conv casts its weight to its input's dtype, as
+    flax's ``dtype`` / ``param_dtype`` split does.
+  * ``remat`` / ``remat_stages`` checkpoint the bottlenecks (and, for
+    ``stem``, the stems) with ``torch.utils.checkpoint``; the recomputation
+    in the backward does not update the running statistics a second time.
+  * :func:`init_like_flax` gives a built model flax's initial values.
   * Public tensors keep the JAX layout, (B, T, H, W, C) frames, and the
     non-local token order (t, h, w). Inside, activations are (B, C, T, H, W)
     tensors; the entry points hand them over as channels-last views, so a
@@ -21,6 +30,9 @@ SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Sequence, Tuple
@@ -28,6 +40,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import nonlocal_attention
 
@@ -47,6 +60,7 @@ TEMPORAL_KERNELS = {
 TEMPORAL_POOL = {"c2d": 2, "i3d": 2, "slow": 1, "slowfast": 1}
 
 BN_EPS = 1e-5  # flax BatchNorm's epsilon in the JAX package
+BN_MOMENTUM = 0.9  # flax's: running <- 0.9 running + 0.1 batch
 
 _STAGE_OUT = [256, 512, 1024, 2048]
 _STAGE_INNER = [64, 128, 256, 512]
@@ -72,9 +86,26 @@ class VideoCfg:
     # use reversed mean/std
     reverse_input_channel: bool = False
     dtype: torch.dtype = torch.float32
+    zero_init_final_bn: bool = True
+    remat: bool = False  # checkpoint every bottleneck
+    # stage indices (0..3 = s2..s5, -1 = the stems) whose blocks checkpoint
+    remat_stages: Tuple[int, ...] = ()
+    # False: BatchNorm's batch statistics reduce in the compute dtype
+    bn_f32_stats: bool = True
 
     @classmethod
-    def from_cfg(cls, vid_mdl, dtype: torch.dtype = torch.float32):
+    def from_cfg(cls, vid_mdl, dtype: torch.dtype = torch.float32,
+                 remat: bool = False, remat_stages: str = "",
+                 bn_f32_stats: bool = True):
+        # remat_stages: "s2,s3" / "0,1" -> stage indices 0..3; "stem" / "s1"
+        # -> -1 (the JAX package's VideoCfg.from_cfg)
+        stages = []
+        for tok in str(remat_stages or "").replace(" ", "").split(","):
+            if tok in ("stem", "s1"):
+                stages.append(-1)
+            elif tok:
+                stages.append(int(tok[1:]) - 2 if tok.startswith("s")
+                              else int(tok))
         # 26 is a 1-block-per-stage bottleneck variant for fast tests
         depth_map = {26: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
         return cls(
@@ -95,18 +126,135 @@ class VideoCfg:
             std=tuple(vid_mdl.std),
             reverse_input_channel=bool(vid_mdl.reverse_input_channel),
             dtype=dtype,
+            zero_init_final_bn=bool(vid_mdl.resnet.zero_init_final_bn),
+            remat=bool(remat),
+            remat_stages=tuple(stages),
+            bn_f32_stats=bool(bn_f32_stats),
         )
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` whose weight and bias are cast to the input's dtype:
+    parameters keep their own dtype, products run in the compute dtype
+    (flax ``param_dtype`` / ``dtype``). Under autograd the cast is part of
+    the graph at each call; without it (inference) the cast copy is kept
+    until the parameter changes, so that a forward costs no casts."""
+
+    _cast_key = None
+
+    def _cast(self, dtype: torch.dtype):
+        w, b = self.weight, self.bias
+        if w.dtype == dtype:
+            return w, b
+        if torch.is_grad_enabled():
+            return w.to(dtype), None if b is None else b.to(dtype)
+        key = (dtype, w.device, w._version, w.data_ptr(),
+               None if b is None else (b._version, b.data_ptr()),
+               torch.is_inference_mode_enabled())
+        if self._cast_key != key:
+            self._cast_copy = (w.detach().to(dtype),
+                               None if b is None else b.detach().to(dtype))
+            self._cast_key = key
+        return self._cast_copy
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self._cast(x.dtype)
+        return self._conv_forward(x, weight, bias)
+
+
+# set while torch.utils.checkpoint recomputes a block in the backward
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev = getattr(_REMAT, "active", False)
+    _REMAT.active = True
+    try:
+        yield
+    finally:
+        _REMAT.active = prev
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def run_remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept, and the
+    BatchNorms of the recomputation leave the running statistics alone
+    (flax's ``nn.remat`` is functional: one update a step)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_remat_contexts)
+
+
+class BatchNorm3d(nn.BatchNorm3d):
+    """flax ``nn.BatchNorm`` over (B, C, T, H, W), momentum 0.9.
+
+    eval: the running statistics. train: the batch mean and the biased batch
+    variance, reduced in float32 (``f32_stats``) or in the input's dtype;
+    the output is in the input's dtype; the running statistics take
+    ``0.9 ra + 0.1 batch`` with the biased variance (``nn.BatchNorm3d``
+    alone would take the unbiased one), except while a remat block is
+    recomputed. ``zero_init``: flax's ``scale_init`` is zeros here."""
+
+    def __init__(self, features: int, zero_init: bool = False,
+                 f32_stats: bool = True):
+        super().__init__(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+        self.zero_init = zero_init
+        self.f32_stats = f32_stats
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        update = not getattr(_REMAT, "active", False)
+        if not self.f32_stats:
+            return self._low_precision_stats(x, update)
+        # the op updates copies (autograd keeps them, and a recomputation
+        # saves the same tensors); the buffers take the result, the
+        # variance's part rescaled from unbiased to biased
+        n = x.numel() // x.shape[1]
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        if update:
+            with torch.no_grad():
+                fresh = var - BN_MOMENTUM * self.running_var
+                self.running_var.mul_(BN_MOMENTUM).add_(fresh * ((n - 1) / n))
+                self.running_mean.copy_(mean)
+        return y
+
+    def _low_precision_stats(self, x: torch.Tensor, update: bool):
+        """flax with ``force_float32_reductions=False``: mean and
+        E[x^2] - mean^2 in the input's dtype, the affine in float32."""
+        dims = (0, 2, 3, 4)
+        mean = x.mean(dim=dims, keepdim=True)
+        var = ((x * x).mean(dim=dims, keepdim=True) - mean * mean).clamp(min=0)
+        shape = (1, -1, 1, 1, 1)
+        mul = torch.rsqrt(var.float() + self.eps) * self.weight.view(shape)
+        y = (x - mean).float() * mul + self.bias.view(shape)
+        if update:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean.reshape(-1).float(), alpha=1.0 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var.reshape(-1).float(), alpha=1.0 - BN_MOMENTUM)
+        return y.to(x.dtype)
 
 
 class ConvBN(nn.Module):
     """Conv3d (no bias, symmetric k//2 padding) + BatchNorm + optional ReLU."""
 
     def __init__(self, dim_in: int, features: int, kernel: Tuple[int, int, int],
-                 strides: Tuple[int, int, int] = (1, 1, 1), relu: bool = True):
+                 strides: Tuple[int, int, int] = (1, 1, 1), relu: bool = True,
+                 zero_init_gamma: bool = False, f32_stats: bool = True):
         super().__init__()
-        self.conv = nn.Conv3d(dim_in, features, kernel, stride=strides,
-                              padding=tuple(k // 2 for k in kernel), bias=False)
-        self.bn = nn.BatchNorm3d(features, eps=BN_EPS)
+        self.conv = Conv3d(dim_in, features, kernel, stride=strides,
+                           padding=tuple(k // 2 for k in kernel), bias=False)
+        self.bn = BatchNorm3d(features, zero_init=zero_init_gamma,
+                              f32_stats=f32_stats)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -130,15 +278,15 @@ class NonLocalBlock(nn.Module):
     default; a caller may set it to the kernel or to the plain version to
     run one of them without dispatch."""
 
-    def __init__(self, dim: int, instantiation: str):
+    def __init__(self, dim: int, instantiation: str, f32_stats: bool = True):
         super().__init__()
         inner = dim // 2
         # biased 1x1x1 convs, as in PySlowFast's Nonlocal
-        self.theta = nn.Conv3d(dim, inner, 1)
-        self.phi = nn.Conv3d(dim, inner, 1)
-        self.g = nn.Conv3d(dim, inner, 1)
-        self.out = nn.Conv3d(inner, dim, 1)
-        self.bn = nn.BatchNorm3d(dim, eps=BN_EPS)
+        self.theta = Conv3d(dim, inner, 1)
+        self.phi = Conv3d(dim, inner, 1)
+        self.g = Conv3d(dim, inner, 1)
+        self.out = Conv3d(inner, dim, 1)
+        self.bn = BatchNorm3d(dim, zero_init=True, f32_stats=f32_stats)
         self.pool = nn.MaxPool3d((1, 2, 2), stride=(1, 2, 2))
         self.kind = instantiation
         self.scale = float(inner) ** -0.5
@@ -162,18 +310,28 @@ class Bottleneck(nn.Module):
     the width or the stride changes)."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
-                 temp_kernel: int, spatial_stride: int, cfg: VideoCfg):
+                 temp_kernel: int, spatial_stride: int, cfg: VideoCfg,
+                 remat: bool = False):
         super().__init__()
         s = spatial_stride
-        self.a = ConvBN(dim_in, dim_inner, (temp_kernel, 1, 1))
-        self.b = ConvBN(dim_inner, dim_inner, (1, 3, 3), strides=(1, s, s))
-        self.c = ConvBN(dim_inner, dim_out, (1, 1, 1), relu=False)
+        f32 = cfg.bn_f32_stats
+        self.a = ConvBN(dim_in, dim_inner, (temp_kernel, 1, 1), f32_stats=f32)
+        self.b = ConvBN(dim_inner, dim_inner, (1, 3, 3), strides=(1, s, s),
+                        f32_stats=f32)
+        self.c = ConvBN(dim_inner, dim_out, (1, 1, 1), relu=False,
+                        zero_init_gamma=cfg.zero_init_final_bn, f32_stats=f32)
         self.proj = None
         if dim_in != dim_out or s != 1:
             self.proj = ConvBN(dim_in, dim_out, (1, 1, 1), strides=(1, s, s),
-                               relu=False)
+                               relu=False, f32_stats=f32)
+        self.remat = remat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return run_remat(self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.proj is None else self.proj(x)
         return F.relu(residual + self.c(self.b(self.a(x))))
 
@@ -184,28 +342,38 @@ class ResStage(nn.Sequential):
 
     def __init__(self, dim_in: int, n_blocks: int, dim_out: int, dim_inner: int,
                  temp_kernels: Sequence[int], spatial_stride: int,
-                 nl_blocks: Sequence[int], cfg: VideoCfg):
+                 nl_blocks: Sequence[int], cfg: VideoCfg, stage_idx: int = -1):
         mods = OrderedDict()
+        remat = cfg.remat or stage_idx in cfg.remat_stages
         for i in range(n_blocks):
             mods[f"block_{i}"] = Bottleneck(
                 dim_in if i == 0 else dim_out, dim_out, dim_inner,
                 temp_kernels[i % len(temp_kernels)],
-                spatial_stride if i == 0 else 1, cfg,
+                spatial_stride if i == 0 else 1, cfg, remat=remat,
             )
             if i in nl_blocks:
-                mods[f"nl_{i}"] = NonLocalBlock(dim_out, cfg.nl_instantiation)
+                mods[f"nl_{i}"] = NonLocalBlock(dim_out, cfg.nl_instantiation,
+                                                f32_stats=cfg.bn_f32_stats)
         super().__init__(mods)
 
 
 class Stem(nn.Module):
     """Stem conv + BN + relu + (1,3,3) s(1,2,2) max pool (pad (0,1,1))."""
 
-    def __init__(self, dim_in: int, width: int, temp_kernel: int):
+    def __init__(self, dim_in: int, width: int, temp_kernel: int,
+                 cfg: VideoCfg):
         super().__init__()
-        self.conv = ConvBN(dim_in, width, (temp_kernel, 7, 7), strides=(1, 2, 2))
+        self.conv = ConvBN(dim_in, width, (temp_kernel, 7, 7), strides=(1, 2, 2),
+                           f32_stats=cfg.bn_f32_stats)
         self.pool = nn.MaxPool3d((1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1))
+        self.remat = -1 in cfg.remat_stages
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return run_remat(self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pool(self.conv(x))
 
 
@@ -217,6 +385,7 @@ class FuseFastToSlow(nn.Module):
         self.conv_f2s = ConvBN(
             fast_channels, fast_channels * cfg.fusion_ratio,
             (cfg.fusion_kernel, 1, 1), strides=(cfg.alpha, 1, 1),
+            f32_stats=cfg.bn_f32_stats,
         )
 
     def forward(self, slow: torch.Tensor, fast: torch.Tensor):
@@ -242,19 +411,19 @@ class SlowFastBackbone(nn.Module):
         wf = w // c.beta_inv
         tk_s = TEMPORAL_KERNELS["slowfast"]["slow"]
         tk_f = TEMPORAL_KERNELS["slowfast"]["fast"]
-        self.s1_slow = Stem(3, w, tk_s[0][0])
-        self.s1_fast = Stem(3, wf, tk_f[0][0])
+        self.s1_slow = Stem(3, w, tk_s[0][0], c)
+        self.s1_fast = Stem(3, wf, tk_f[0][0], c)
         self.s1_fuse = FuseFastToSlow(wf, c)
         slow_in, fast_in = w + wf * c.fusion_ratio, wf
         for i in range(4):
             out_f = _STAGE_OUT[i] // c.beta_inv
             self.add_module(f"s{i + 2}_slow", ResStage(
                 slow_in, c.depth_blocks[i], _STAGE_OUT[i], _STAGE_INNER[i],
-                tk_s[i + 1], c.spatial_strides[i], _nl_for(c, i, 0), c))
+                tk_s[i + 1], c.spatial_strides[i], _nl_for(c, i, 0), c, i))
             self.add_module(f"s{i + 2}_fast", ResStage(
                 fast_in, c.depth_blocks[i], out_f,
                 _STAGE_INNER[i] // c.beta_inv, tk_f[i + 1],
-                c.spatial_strides[i], _nl_for(c, i, 1), c))
+                c.spatial_strides[i], _nl_for(c, i, 1), c, i))
             slow_in, fast_in = _STAGE_OUT[i], out_f
             if i < 3:  # fuse after s2, s3, s4
                 self.add_module(f"s{i + 2}_fuse", FuseFastToSlow(out_f, c))
@@ -280,12 +449,12 @@ class ResNet3DBackbone(nn.Module):
         super().__init__()
         c = cfg
         tk = TEMPORAL_KERNELS[c.arch]["fast"]
-        self.s1 = Stem(3, c.width, tk[0][0])
+        self.s1 = Stem(3, c.width, tk[0][0], c)
         dim_in = c.width
         for i in range(4):
             self.add_module(f"s{i + 2}", ResStage(
                 dim_in, c.depth_blocks[i], _STAGE_OUT[i], _STAGE_INNER[i],
-                tk[i + 1], c.spatial_strides[i], _nl_for(c, i, 0), c))
+                tk[i + 1], c.spatial_strides[i], _nl_for(c, i, 0), c, i))
             dim_in = _STAGE_OUT[i]
         tpool = TEMPORAL_POOL[c.arch]
         self.tpool = (nn.MaxPool3d((tpool, 1, 1), stride=(tpool, 1, 1))
@@ -310,6 +479,34 @@ def backbone_out_dim(c: VideoCfg) -> int:
     if c.arch == "slowfast":
         return w + w // c.beta_inv
     return w
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
+    """flax's default initial values, drawn from ``seed`` (torch's generator,
+    so the values differ from the JAX package's; the distributions match):
+    conv and dense kernels ``lecun_normal`` (a normal of std
+    sqrt(1 / fan_in) / 0.8796, cut at two of its standard deviations),
+    biases zero, BatchNorm scale one (zero where flax's ``scale_init`` is
+    zeros: the final BN of each bottleneck under ``zero_init_final_bn``, and
+    the non-local BN), shift zero, running mean 0 and variance 1."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in model.modules():
+        if isinstance(m, (nn.Conv3d, nn.Linear)):
+            fan_in = math.prod(m.weight.shape[1:])
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm3d):
+            m.weight.fill_(0.0 if getattr(m, "zero_init", False) else 1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+            m.num_batches_tracked.zero_()
+    return model
 
 
 def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:

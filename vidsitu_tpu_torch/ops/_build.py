@@ -74,13 +74,17 @@ def build(name: str) -> Path:
 
 @functools.cache
 def load_nonlocal_attn() -> ctypes.CDLL:
-    """The non-local attention library (both entries), built on first call."""
+    """The non-local attention library (both forward entries and the
+    backward), built on first call."""
     lib = ctypes.CDLL(str(build("nonlocal_attn")))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    shared = [ptr] * 4 + [i32] * 5 + [ctypes.c_float]
+    shared = [ptr] * 5 + [i32] * 5 + [ctypes.c_float]  # q k v o lse ...
     lib.nl_attn_fwd.argtypes = shared + [i32, ptr]  # is_bf16, stream
     lib.nl_attn_fwd_wgmma.argtypes = shared + [ptr]
+    lib.nl_attn_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float,
+                                                         i32, ptr]
     lib.nl_attn_fwd.restype = lib.nl_attn_fwd_wgmma.restype = i32
+    lib.nl_attn_bwd.restype = i32
     return lib
 
 
