@@ -81,14 +81,17 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    each beside ``clone()`` and one elementwise op;
 15. ``vidsitu_tpu_torch.bench`` in process: ``gates`` (FLIP / no-flip lines),
    ``featext 32`` and ``decode5_real``, one JSON line each;
-16. the attention's backward (``nl_attn_bwd``, built in phase 1 from the same
-   source) against the plain backward and the plain version that repeats
-   its tiles, and the forward's log-sum-exp against the plain one, at phase
-   2's shapes, both kinds, float32 and bf16 (error relative to each
+16. the attention's backward entries (built in phase 1 from the same
+   source; ``ptxas`` registers and spills of their kernels printed):
+   ``nl_attn_bwd_wgmma`` routed in bf16, ``nl_attn_bwd`` forced in bf16 and
+   routed in float32, each against the plain backward and the plain version
+   that repeats its own tiles, and the forward's log-sum-exp against the
+   plain one, at phase 2's shapes, both kinds (error relative to each
    gradient's scale: 2e-4 float32; 5e-2 bf16, or one bf16 step of the
-   largest gradient where that is more); then the kernel, autograd of the
-   plain attention and the library's fused attention's backward timed in
-   turns at B = 80 (s3 and s4);
+   largest gradient where that is more); two calls of the wgmma entry
+   bitwise equal; then both entries, autograd of the plain attention and
+   the library's fused attention's backward timed in turns at B = 80 (s3
+   and s4);
 17. this slice's main path: ``python -m vidsitu_tpu_torch.main
    --task_type=vb`` in process, I3D-NL R50 at full width and depth, bf16
    products, float32 parameters and Adam, on a synthetic 224 px split of 8
@@ -98,7 +101,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    weights and BatchNorm statistics moved, ``{uid}.ckpt``, 5 events x 5
    verbs per segment in ``valid_0.pkl``, the optimizer state restored, and
    exactly 5 forward launches a train step and an eval batch and 5
-   backward launches a train step;
+   backward launches a train step, all on the routed entries
+   (``nl_attn_fwd_wgmma``, ``nl_attn_bwd_wgmma``);
 18. one I3D-NL train step at the config's batch (16 videos = 80 clips) on
    device tensors with the kernels and with the plain attention under
    autograd: loss and every non-local block's theta / phi / g / out
@@ -138,6 +142,7 @@ ATTN_CHECKS = (("s3", 8, S3), ("s4", 8, S4), ("ragged", 8, RAGGED),
                ("ragged-d512", 3, (65, 196, 512)))
 ATOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 V1_ENTRY = "nl_attn_fwd"  # the wmma / float32 entry
+BWD_V1_ENTRY = "nl_attn_bwd"  # the backward's wmma / float32 entry
 FEATURE_RTOL = 2e-2  # kernel vs plain path, relative to max |feature|
 # built together: phases 1, 6 and 11 (twice)
 KERNELS = ("nonlocal_attn", "beam_gather", "fused_bottleneck", "copy_probe")
@@ -1008,32 +1013,32 @@ def backward_ms(out, inputs, dout):
 
 
 def phase_backward_kernel(dev):
-    """Phase 16: the backward entry against the plain backward and the plain
-    version that repeats its tiles, the forward's log-sum-exp against the
-    plain one, at every listed shape, both kinds and dtypes; then the
-    backward kernel, autograd of the plain attention and the library's
-    fused attention's backward timed in turns at B = 80."""
+    """Phase 16: each backward entry that takes the input (the routed one,
+    and the first kernel's forced in bf16) against the plain backward and
+    the plain version that repeats its own tiles, the wgmma entry twice
+    (bitwise equal), the forward's log-sum-exp against the plain one, at
+    every listed shape, both kinds and dtypes; then both entries, autograd
+    of the plain attention and the library's fused attention's backward
+    timed in turns at B = 80."""
     from torch.profiler import ProfilerActivity, profile
 
+    from vidsitu_tpu_torch.attn_probe import ptxas_lines
     from vidsitu_tpu_torch.ops import attention as A
 
-    from vidsitu_tpu_torch.ops import _build
-
-    log(f"[16 build] {A.BWD_ENTRY} is built with the forward entries from "
-        "nonlocal_attn.cu in phase 1 (one source); ptxas of its kernels:")
-    kernel = None
-    for line in (_build.BUILD_DIR / "nonlocal_attn.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            kernel = line.split("'")[1] if "'" in line else line
-        elif kernel and "nl_attn_bwd" in kernel and (
-                "Used" in line or "spill" in line):
-            log(f"    {kernel[:60]}: {line.split(':', 1)[-1].strip()}")
+    log("[16 build] the backward entries are built with the forward entries "
+        "from nonlocal_attn.cu in phase 1 (one source); ptxas of their "
+        "kernels:")
+    for kernel, line in ptxas_lines():
+        log(f"    {kernel}: {line}")
     rng = np.random.default_rng(16)
-    worst = worst_rel = 0.0  # bf16: absolute, and relative to the scale
+    # bf16, by entry: absolute, and relative to each gradient's scale
+    worst = {name: 0.0 for name in A.BWD_ENTRIES}
+    worst_rel = dict(worst)
     for name, b, (sq, sk, d) in ATTN_CHECKS:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = seeded_qkv(rng, b, sq, sk, d, dtype, dev)
             do = seeded_qkv(rng, b, sq, sq, d, dtype, dev)[0]
+            routed = A.bwd_kernel_entry(dtype, d)
             for kind in ("softmax", "dot_product"):
                 scale = d ** -0.5
                 out, lse = A.fused_attention(q, k, v, kind, scale,
@@ -1043,35 +1048,43 @@ def phase_backward_kernel(dev):
                     _, want_lse = A.attention_tiled_reference(
                         q, k, v, kind, scale, A.wgmma_block_k(d),
                         return_lse=True)
-                got = A.fused_attention_backward(q, k, v, out, do, lse, kind,
-                                                 scale)
                 ref = A.attention_backward_reference(q, k, v, out, do, kind,
                                                      scale)
-                til = A.attention_backward_tiled_reference(
-                    q, k, v, out, do, lse, kind, scale)
-                torch.cuda.synchronize()
-                ok = True
-                errs = []
-                for g, r, t in zip(got, ref, til):
-                    lim = grad_limit(dtype, r)
-                    e = (g.float() - r.float()).abs().max().item()
-                    et = (g.float() - t.float()).abs().max().item()
-                    ok = ok and g.shape == r.shape and g.dtype == dtype and (
-                        e <= lim and et <= lim)
-                    top = r.float().abs().max().item()
-                    errs.append(f"{e / top:.2e}/{et / top:.2e}")
-                    if dtype == torch.bfloat16:
-                        worst, worst_rel = max(worst, e), max(worst_rel,
-                                                              e / top)
                 lse_err = 0.0
                 if want_lse is not None:
                     lse_err = (lse - want_lse).abs().max().item()
-                    ok = ok and lse_err <= 1e-3
-                log(f"[16 backward] {name} B={b} Sq={sq} Sk={sk} d={d} "
-                    f"{str(dtype)[6:]} {kind}: dq/dk/dv error / scale vs plain"
-                    f"/tiled {' '.join(errs)}; lse {lse_err:.2e} "
-                    f"{'ok' if ok else 'FAIL'}")
-                assert ok, "backward kernel disagrees with the plain version"
+                for entry in dict.fromkeys((routed, A.BWD_ENTRY)):
+                    got = A.fused_attention_backward(
+                        q, k, v, out, do, lse, kind, scale,
+                        entry=None if entry == routed else entry)
+                    again = (A.fused_attention_backward(
+                        q, k, v, out, do, lse, kind, scale)
+                        if entry == A.WGMMA_BWD_ENTRY else got)
+                    til = A.attention_backward_tiled_reference(
+                        q, k, v, out, do, lse, kind, scale, entry=entry)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(x, y) for x, y in zip(got, again))
+                    ok = same and lse_err <= 1e-3
+                    errs = []
+                    for g, r, t in zip(got, ref, til):
+                        lim = grad_limit(dtype, r)
+                        e = (g.float() - r.float()).abs().max().item()
+                        et = (g.float() - t.float()).abs().max().item()
+                        ok = ok and g.shape == r.shape and g.dtype == dtype \
+                            and e <= lim and et <= lim
+                        top = r.float().abs().max().item()
+                        errs.append(f"{e / top:.2e}/{et / top:.2e}")
+                        if dtype == torch.bfloat16:
+                            worst[entry] = max(worst[entry], e)
+                            worst_rel[entry] = max(worst_rel[entry], e / top)
+                    forced = "" if entry == routed else " (forced)"
+                    repeat = "; two calls bitwise equal" if again is not got \
+                        else ""
+                    log(f"[16 backward] {entry}{forced} {name} B={b} Sq={sq} "
+                        f"Sk={sk} d={d} {str(dtype)[6:]} {kind}: dq/dk/dv "
+                        f"error / scale vs plain/tiled {' '.join(errs)}; lse "
+                        f"{lse_err:.2e}{repeat} {'ok' if ok else 'FAIL'}")
+                    assert ok, f"{entry} disagrees with the plain version"
     times = {}
     for name, (sq, sk, d) in (("s3", S3), ("s4", S4)):
         b = 80
@@ -1093,9 +1106,13 @@ def phase_backward_kernel(dev):
                               if e.self_device_time_total > 0),
                              key=lambda e: -e.self_device_time_total)
         backend = lib_kernels[0].key[:90] if lib_kernels else "not measured"
-        ms, plain_ms, lib_ms = medians_in_turns([
+        routed = A.bwd_kernel_entry(torch.bfloat16, d)
+        ms, v1_ms, plain_ms, lib_ms = medians_in_turns([
             lambda: A.fused_attention_backward(q, k, v, out, do, lse,
                                                "softmax", scale),
+            lambda: A.fused_attention_backward(q, k, v, out, do, lse,
+                                               "softmax", scale,
+                                               entry=A.BWD_ENTRY),
             backward_ms(plain_out, leaves, do),
             backward_ms(lib_out, l4, do.unsqueeze(1))], 5)
         flops = 5 * 2 * b * sq * sk * d
@@ -1103,12 +1120,14 @@ def phase_backward_kernel(dev):
                  * 2 - out.numel() * out.element_size()
                  - do.numel() * do.element_size() + lse.numel() * 4)
         bound_ms, bound_by = bound(moved, flops)
-        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        times[name] = {"entry": routed, "ms": ms, "v1_ms": v1_ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_backend": backend}
         log(f"[16 backward] time {name} B={b} Sq={sq} Sk={sk} d={d} bf16 "
-            f"softmax: {A.BWD_ENTRY} {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s, {100 * bound_ms / ms:.1f} % of the bound), autograd of "
+            f"softmax: {routed} {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s, {100 * bound_ms / ms:.1f} % of the bound), "
+            f"{A.BWD_ENTRY} {v1_ms:.4f} ms ({v1_ms / ms:.2f}x), autograd of "
             f"the plain attention {plain_ms:.4f} ms, scaled_dot_product_"
             f"attention backward {lib_ms:.4f} ms (its top kernel: {backend}), "
             f"bound {bound_ms:.4f} ms by {bound_by}")
@@ -1146,7 +1165,9 @@ def phase_vb_train_main(paths, root):
     steps = n_train // VB_BS
     assert steps == 2, f"{n_train} train segments: {steps} steps an epoch"
     fwd = A.kernel_entry(torch.bfloat16, 256)
+    bwd = A.bwd_kernel_entry(torch.bfloat16, 256)
     assert fwd == A.kernel_entry(torch.bfloat16, 512)
+    assert bwd == A.bwd_kernel_entry(torch.bfloat16, 512) == A.WGMMA_BWD_ENTRY
     A.reset_launches()
     t0 = time.perf_counter()
     res = port_main.main(vb_train_args(paths, root))
@@ -1160,10 +1181,10 @@ def phase_vb_train_main(paths, root):
     log(f"[17 train] main --task_type=vb i3d_r50_nl_8x8 bf16, {n_train} "
         f"segments ({steps} steps of {VB_BS} videos = {5 * VB_BS} clips), 2 "
         f"epochs + final validation in {wall:.1f} s; launches {launches} "
-        f"(want {fwd} {want_fwd}, {A.BWD_ENTRY} {want_bwd})")
+        f"(want {fwd} {want_fwd}, {bwd} {want_bwd})")
     assert n_nl == NL_BLOCKS and launches == {
         **dict.fromkeys(launches, 0), fwd: want_fwd,
-        A.BWD_ENTRY: want_bwd}, (n_nl, launches)
+        bwd: want_bwd}, (n_nl, launches)
     tdir = (Path(cfg.misc.tmp_path) / "tracking"
             / f"{cfg.expm.exp_name}_vb" / cfg.uid)
     recs = [json.loads(x) for x in (tdir / "metrics.jsonl").read_text()
@@ -1207,7 +1228,7 @@ def phase_vb_train_main(paths, root):
     assert l2.num_epoch == 3 and l2.num_it == 3 * steps, (l2.num_epoch,
                                                           l2.num_it)
     assert opt_steps == 3 * steps, "optimizer state not restored"
-    assert A.LAUNCHES_BY_ENTRY[A.BWD_ENTRY] == n_nl * steps
+    assert A.LAUNCHES_BY_ENTRY[bwd] == n_nl * steps
     return launches, wall
 
 
@@ -1353,7 +1374,8 @@ def phase_train_step(dev):
         _, lse = A.fused_attention(*args[:3], store["kind"], store["scale"],
                                    with_lse=True)
         want_t = A.attention_backward_tiled_reference(
-            *args, lse, store["kind"], store["scale"])
+            *args, lse, store["kind"], store["scale"],
+            entry=A.bwd_kernel_entry(args[0].dtype, args[0].shape[-1]))
         attn_errs = {key: max(rel(store[key], w), rel(store[key], wt))
                      for key, w, wt in zip(("dq", "dk", "dv"), want, want_t)}
         del store, args, want, want_t
@@ -1556,6 +1578,7 @@ def main() -> int:
 
     s3, s4 = times["s3"], times["s4"]
     fwd_entry = s3["entry"]
+    bwd_entry = bwd_times["s3"]["entry"]
     # fused bottleneck at the gate's 256 frames of 56x56, 256/64/256, bf16
     fb256, fb960 = fused_timed["256"], fused_timed["960"]
     fb_others = fused_timed["others"]
@@ -1614,13 +1637,19 @@ def main() -> int:
                     ms_s3=fb_others["slow-s3"]["ms"],
                     bound_ms_s3=fb_others["slow-s3"]["bound_ms"])),
               ("fused_bottleneck_multi", FB_MULTI_TPU, "multi_v1_ms", {}))),
-        kernel_row("nl_attn_bwd", "nonlocal_attn.cu", BWD_TPU,
-                   train_launches["nl_attn_bwd"], bwd_err,
+        kernel_row(bwd_entry, "nonlocal_attn.cu", BWD_TPU,
+                   train_launches[bwd_entry], bwd_err[bwd_entry],
                    bwd_times["s3"]["ms"], bwd_times["s3"]["plain_ms"],
                    bwd_times["s3"]["bound_ms"], bwd_times["s3"]["bound_by"],
                    bwd_times["s3"]["library_ms"],
                    replaces_note="no TPU kernel: jax.grad of _einsum_attention",
-                   max_rel_err=bwd_rel_err,
+                   max_rel_err=bwd_rel_err[bwd_entry],
+                   ms_v1=bwd_times["s3"]["v1_ms"],
+                   ms_v1_s4=bwd_times["s4"]["v1_ms"],
+                   max_abs_err_v1=bwd_err[BWD_V1_ENTRY],
+                   max_rel_err_v1=bwd_rel_err[BWD_V1_ENTRY],
+                   launches_by_entry={e: train_launches[e]
+                                      for e in bwd_err},
                    ms_s4=bwd_times["s4"]["ms"],
                    plain_ms_s4=bwd_times["s4"]["plain_ms"],
                    library_ms_s4=bwd_times["s4"]["library_ms"],

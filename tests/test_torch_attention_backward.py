@@ -259,11 +259,12 @@ def test_backward_kernel_matches_plain_on_gpu(cuda_device, shape, kind,
     o, lse = port.fused_attention(q, k, v, kind, d ** -0.5, with_lse=True)
     got = port.fused_attention_backward(q, k, v, o, do, lse, kind, d ** -0.5)
     torch.cuda.synchronize()
-    assert port.LAUNCHES_BY_ENTRY[port.BWD_ENTRY] == 1
+    entry = port.bwd_kernel_entry(q.dtype, d)
+    assert port.LAUNCHES_BY_ENTRY[entry] == 1
     for want in (port.attention_backward_reference(q, k, v, o, do, kind,
                                                    d ** -0.5),
                  port.attention_backward_tiled_reference(
-                     q, k, v, o, do, lse, kind, d ** -0.5)):
+                     q, k, v, o, do, lse, kind, d ** -0.5, entry=entry)):
         _check([g.cpu() for g in got], [w.float().cpu().numpy()
                                         for w in want], dtype)
 
@@ -276,7 +277,8 @@ def test_dispatch_takes_the_function_under_grad_on_gpu(cuda_device):
     port.reset_launches()
     port.nonlocal_attention(q, k, v, "softmax", 0.125).float().sum().backward()
     assert port.LAUNCHES_BY_ENTRY["nl_attn_fwd_wgmma"] == 1
-    assert port.LAUNCHES_BY_ENTRY[port.BWD_ENTRY] == 1
+    assert port.LAUNCHES_BY_ENTRY["nl_attn_bwd_wgmma"] == 1
     with torch.no_grad():
         port.nonlocal_attention(q, k, v, "softmax", 0.125)
-    assert port.LAUNCHES_BY_ENTRY[port.BWD_ENTRY] == 1
+    assert port.LAUNCHES_BY_ENTRY["nl_attn_bwd_wgmma"] == 1
+    assert port.LAUNCHES_BY_ENTRY[port.BWD_ENTRY] == 0

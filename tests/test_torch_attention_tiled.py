@@ -151,7 +151,9 @@ def test_kernel_entry_raises_on_what_no_kernel_takes(dtype, d, exc):
 def test_kernel_entry_names_are_the_entries():
     assert set(port.ENTRIES) == {"nl_attn_fwd_wgmma", "nl_attn_fwd"}
     assert port.BWD_ENTRY == "nl_attn_bwd"
-    assert set(port.LAUNCHES_BY_ENTRY) == set(port.ENTRIES) | {port.BWD_ENTRY}
+    assert set(port.BWD_ENTRIES) == {"nl_attn_bwd_wgmma", "nl_attn_bwd"}
+    assert set(port.LAUNCHES_BY_ENTRY) == set(port.ENTRIES) | set(
+        port.BWD_ENTRIES)
 
 
 @pytest.mark.parametrize("entry", [None, *port.ENTRIES])

@@ -1,7 +1,9 @@
-// Non-local attention forward for NVIDIA Hopper (sm_90a). Two kernels: the
+// Non-local attention for NVIDIA Hopper (sm_90a). Two forward kernels: the
 // wmma / float32 one first (nl_attn_fwd), then the wgmma one
 // (nl_attn_fwd_wgmma, with its own note), which takes bf16 at d in {64, 128,
-// 256, 512}. ops/attention.py picks the entry from dtype and d.
+// 256, 512}; then two backward entries, nl_attn_bwd (wmma / float32) and
+// nl_attn_bwd_wgmma (bf16 at the same widths), each with its own note.
+// ops/attention.py picks each entry from dtype and d.
 //
 // Replaces the TPU kernel vidsitu_tpu/ops/attention.py:30 _fused_attn_kernel
 // (reached through fused_attention, :61). Computes, for each batch b,
@@ -36,7 +38,8 @@
 // products and register accumulators are in nl_attn_fwd_wgmma, further down.
 // Both forward entries can also write each query row's log-sum-exp of the
 // scaled logits, in the log2 domain (lse2 = log2 sum_j 2^(s_j scale log2 e)),
-// for the training path's backward, nl_attn_bwd, at the end of the file.
+// for the training path's backward entries, nl_attn_bwd and
+// nl_attn_bwd_wgmma, at the end of the file.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // C entry: nl_attn_fwd (after this kernel), returns cudaGetLastError().
@@ -1093,8 +1096,9 @@ extern "C" int nl_attn_fwd_wgmma(const void* q, const void* k, const void* v,
 //  * the tiles are sized to the shared memory at each head width: at d = 512
 //    a 64-row tile of K, V, Q and dO alone is 256 KB, so the dK / dV pass
 //    keeps 16 keys against 32 queries there.
-// Left for later: wgmma with register accumulators, a cp.async ring, and S
-// computed once for both passes.
+// wgmma with register accumulators and a cp.async ring are in
+// nl_attn_bwd_wgmma, further down; this kernel stays for float32 and the
+// widths that one does not take.
 //
 // C entry: nl_attn_bwd (bottom of file), returns cudaGetLastError().
 
@@ -1499,4 +1503,623 @@ extern "C" int nl_attn_bwd(const void* q, const void* k, const void* v,
                    : bwd::launch_d<float>(q, k, v, o, dout, lse, delta, dq,
                                           dk, dv, b, sq, sk, d, softmax, scale,
                                           s));
+}
+
+// ===========================================================================
+// nl_attn_bwd_wgmma: the same gradient as nl_attn_bwd, redesigned for
+// Hopper's warpgroup tensor-core instruction. bf16 only, d in {64, 128, 256,
+// 512}; nl_attn_bwd stays for float32 and every other width.
+//
+// Replaces, as nl_attn_bwd does, jax.grad of the einsum version
+// (vidsitu_tpu/ops/attention.py:121 _einsum_attention; the TPU package has no
+// backward kernel). Same inputs, outputs and arithmetic: P = 2^(S scale
+// log2 e - lse2) from the forward's statistics (S / Sk for dot_product),
+// D = rowsum(dO o O), dS = scale P o (dP - D) (dP / Sk), P and dS rounded
+// to bf16 before the products that take them, float32 logits and
+// accumulators, dQ / dK / dV in bf16.
+//
+// What bounds it on an H100: five Sq x Sk x d products, 5.0e11 operations
+// at the I3D-NL stage-3 shape for 80 clips (Sq 3136, Sk 784, d 256) against
+// 0.64 GB of inputs and gradients: 0.509 ms by operations; stage 4 (784,
+// 196, 512) is 6.3e10 operations against 0.32 GB, 0.096 ms by bytes. So,
+// as in the forward, what counts is how much of the time the tensor cores
+// run.
+//
+// What the design does about it:
+//  * every product is wgmma.mma_async (m64nNk16, bf16 in, float32 out) with
+//    its accumulator in registers; no accumulator, logit or probability
+//    passes through shared memory except one hand-over, below;
+//  * two passes, as nl_attn_bwd, so that every sum runs in a fixed order
+//    (no atomics: two calls give bitwise-equal results), plus the D launch
+//    (bwd::nl_attn_bwd_rowdot_kernel); S and dP are computed in both passes:
+//    seven Sq x Sk x d products where five are needed;
+//  * dK / dV pass: a block owns 64 keys (K and V resident, the wgmma M side)
+//    and streams the query tiles. The two warpgroups split the accumulators:
+//    warpgroup 0 computes S^T = K Q^T, turns it into P^T and keeps
+//    dV += P^T dO; warpgroup 1 computes dP^T = V dO^T and keeps
+//    dK += dS^T Q. S^T and dP^T are in the accumulator layout with keys as
+//    rows, which is the A layout of the next product: P^T and dS^T are
+//    packed to bf16 in place and fed from registers; Q and dO serve twice,
+//    as K-major B operands for S^T / dP^T and as MN-major B operands (the
+//    instruction's transpose flag) for dV / dK. Warpgroup 1 needs P for dS:
+//    warpgroup 0 writes its float32 P^T to a shared tile in fragment order
+//    (thread t's values where thread t of the other warpgroup reads them,
+//    conflict-free) and arrives on a named barrier that warpgroup 1 syncs
+//    on. Four products per tile and block, two per warpgroup;
+//  * dQ pass: as the forward, up to d = 256 each warpgroup owns 64 query
+//    rows (128 a block, Q and dO resident) and both share the streamed K / V
+//    tiles; S = Q K^T and dP = dO V^T go back to back, then dS in registers,
+//    then dQ += dS K with K as the MN-major B operand;
+//  * registers (per thread of a warpgroup, float32 accumulators):
+//      dK + dV of 64 keys at d = 256 would be 2 x 64 x 256 / 128 = 256:
+//      split by warpgroup, 128 each, plus 32 for S^T or dP^T (64 queries);
+//      d = 512: 256 each, so a block takes 256 of the columns (the grid's
+//      second dimension), 128 registers, and computes S^T and dP^T again
+//      for the other half: 6 instead of 4 products in that pass;
+//      dQ of 64 rows at d = 256: 128, plus 16 + 16 for S and dP (32 keys);
+//      d = 512: both warpgroups own the same 64 rows and 256 columns each,
+//      both compute S and dP (5 instead of 3 products), 128 + 8 + 8;
+//    ptxas -v in the build log says what the compiler made of it;
+//  * streamed tiles arrive in a two-slot ring filled with cp.async by all
+//    256 threads one tile ahead, issued right after the tile's first
+//    products, with one __syncthreads a tile (the forward's scheme); the
+//    streamed query rows' lse and D arrive with their tile (4-byte
+//    cp.async), one vector each;
+//  * tile sizes (bwd_wgmma_tiles in ops/attention.py mirrors them): 64
+//    queries a streamed tile in the dK / dV pass (16 at d = 512, where K and
+//    V alone take 128 KB); 64 keys a tile in the dQ pass up to d = 128, 32
+//    at d = 256 (Q and dO of 128 rows take 128 KB), 16 at d = 512;
+//  * the epilogues stage bf16 rows in the dead tiles and store 16 bytes a
+//    thread; rows past Sq / Sk are not stored.
+// Left for later: overlapping one tile's softmax with the next tile's
+// products (a second S accumulator, or TMA with a producer warp), and S
+// computed once for both passes.
+//
+// C entry: nl_attn_bwd_wgmma (bottom of file), returns cudaGetLastError().
+
+// wg::MmaSS at the widths the forward does not use: 64 and 16.
+namespace wg {
+
+template <>
+struct MmaSS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaSS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7 }, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+}  // namespace wg
+
+namespace wgb {
+
+using wg::kSmemAlign;
+using wg::kSmemLimit;
+using wg::kThreads;
+
+constexpr int kBwdRows = 64;         // rows of one warpgroup (wgmma M)
+constexpr int kBwdStages = 2;        // slots of the streamed ring
+constexpr int kBwdChunk = 256;       // widest output one warpgroup keeps
+constexpr int kBwdKvBlockQ = 64;     // queries a tile, dK / dV pass
+constexpr int kBwdKvBlockQWide = 16; // the same at d > kBwdChunk
+constexpr int kBwdQBlockK = 64;      // keys a tile, dQ pass, d <= 128
+constexpr int kBwdQBlockKMid = 32;   // the same at d = 256
+constexpr int kBwdQBlockKWide = 16;  // the same at d > kBwdChunk
+constexpr int kBarHand = 1;          // named barrier of the P hand-over
+
+// Shared-memory budget of one block of each pass for head width D.
+template <int D>
+struct Cfg {
+  static constexpr bool kWide = D > kBwdChunk;
+  static constexpr int NC = kWide ? kBwdChunk : D;  // columns a warpgroup
+  // dK / dV pass: 64 own keys, BQ streamed queries
+  static constexpr int BQ = kWide ? kBwdKvBlockQWide : kBwdKvBlockQ;
+  static constexpr int kKvOwn = 2 * kBwdRows * D * 2;  // K and V
+  static constexpr int kKvTile = BQ * D * 2;           // one Q or dO tile
+  static constexpr int kKvRing = kBwdStages * 2 * kKvTile;
+  static constexpr int kKvStats = kBwdStages * 2 * BQ * 4;  // lse, D
+  static constexpr int kKvHand = kBwdRows * BQ * 4;         // float32 P^T
+  static constexpr int kKvBytes =
+      kSmemAlign + kKvOwn + kKvRing + kKvStats + kKvHand;
+  static constexpr int LDKV = NC * 2 + 16;  // epilogue row pitch, bytes
+  // dQ pass: QROWS own queries, BK streamed keys
+  static constexpr int QROWS = kWide ? kBwdRows : 2 * kBwdRows;
+  static constexpr int BK =
+      kWide ? kBwdQBlockKWide : (D <= 128 ? kBwdQBlockK : kBwdQBlockKMid);
+  static constexpr int kQOwn = 2 * QROWS * D * 2;  // Q and dO
+  static constexpr int kQTile = BK * D * 2;        // one K or V tile
+  static constexpr int kQBytes = kSmemAlign + kQOwn + kBwdStages * 2 * kQTile;
+  static constexpr int LDQ = D * 2 + 16;
+  static_assert(kKvBytes <= kSmemLimit && kQBytes <= kSmemLimit,
+                "tiles exceed the SM's shared memory");
+  static_assert(2 * kBwdRows * LDKV <= kKvOwn + kKvRing &&
+                    QROWS * LDQ <= kQOwn,
+                "the epilogue's staging must fit in the dead tiles");
+  static_assert(D % 64 == 0 && BQ % 16 == 0 && BK % 16 == 0 && NC <= 256,
+                "wgmma shapes");
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// acc (+)= A B over the whole head width: A the 64 rows at shared address a
+// inside a swizzled (ROWS_A x D) tile, B the swizzled (N x D) tile at b, both
+// K-major (one wgmma for every 16 of d).
+template <int D, int ROWS_A, int N>
+__device__ __forceinline__ void mma_rows(float (&acc)[N / 2], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t ka = (kk >> 2) * 128 * ROWS_A + (kk & 3) * 32;
+    const uint32_t kb = (kk >> 2) * 128 * N + (kk & 3) * 32;
+    wg::MmaSS<N>::run(acc, wg::smem_desc(a + ka, 16, 1024),
+                      wg::smem_desc(b + kb, 16, 1024), kk > 0);
+  }
+}
+
+// acc += A B: A (64 x K) from registers, the accumulator-layout values x
+// packed to bf16 16 columns at a time; B the columns [col0, col0 + NC) of a
+// swizzled (K x D) tile, MN-major.
+template <int NC, int K>
+__device__ __forceinline__ void mma_regs(float (&acc)[NC / 2],
+                                         const float (&x)[K / 2], uint32_t b,
+                                         int col0) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t pa[4] = {wg::pack_bf16(x[8 * kk + 0], x[8 * kk + 1]),
+                            wg::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]),
+                            wg::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]),
+                            wg::pack_bf16(x[8 * kk + 6], x[8 * kk + 7])};
+    wg::MmaRS<NC>::run(acc, pa,
+                       wg::smem_desc(b + (col0 / 64) * 128 * K + kk * 2048,
+                                     128 * K, 1024),
+                       1);
+  }
+}
+
+// One slot of the dK / dV pass's ring: the Q and dO tiles of queries
+// [q0, q0 + BQ) and, for softmax, their lse and D (zeros past Sq), as one
+// cp.async group.
+template <int D>
+__device__ __forceinline__ void load_query_tile(uint32_t slot, float* stat,
+                                                const bf16* qb,
+                                                const bf16* dob,
+                                                const float* lseb,
+                                                const float* deltab, int q0,
+                                                int sq) {
+  constexpr int BQ = Cfg<D>::BQ;
+  wg::load_tile_async<BQ, D>(slot, qb, q0, sq);
+  wg::load_tile_async<BQ, D>(slot + Cfg<D>::kKvTile, dob, q0, sq);
+  if (lseb != nullptr) {
+    for (int i = threadIdx.x; i < 2 * BQ; i += kThreads) {
+      const int r = i % BQ;
+      const bool ok = q0 + r < sq;
+      const float* src = (i < BQ ? lseb : deltab) + (ok ? q0 + r : 0);
+      cp_async4(wg::smem_u32(stat + i), src, ok ? 4 : 0);
+    }
+  }
+  wg::cp_async_commit();
+}
+
+// The K and V tiles of keys [key0, key0 + BK), as one cp.async group.
+template <int D>
+__device__ __forceinline__ void load_key_tile(uint32_t slot, const bf16* kb,
+                                              const bf16* vb, int key0,
+                                              int sk) {
+  constexpr int BK = Cfg<D>::BK;
+  wg::load_tile_async<BK, D>(slot, kb, key0, sk);
+  wg::load_tile_async<BK, D>(slot + Cfg<D>::kQTile, vb, key0, sk);
+  wg::cp_async_commit();
+}
+
+// dK and dV of 64 keys and NC columns (blockIdx.y picks them): every query
+// tile streams past. Warpgroup 0 keeps dV, warpgroup 1 dK.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int sq, int sk, int softmax, float scale) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ;
+  constexpr int NC = C::NC;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + kSmemAlign - 1) & ~(uint32_t)(kSmemAlign - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sK = base;
+  const uint32_t sV = base + kBwdRows * D * 2;
+  const uint32_t sRing = base + C::kKvOwn;
+  float* sStat = reinterpret_cast<float*>(smem + C::kKvOwn + C::kKvRing);
+  float* sHand = sStat + kBwdStages * 2 * BQ;
+
+  const int group = threadIdx.x / 128;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int quad = lane & 3;
+  const int k0 = blockIdx.x * kBwdRows;
+  const int col0 = blockIdx.y * NC;
+  const size_t b = blockIdx.z;
+  const bf16* qb = q + b * sq * D;
+  const bf16* dob = dout + b * sq * D;
+  const float* lseb = softmax ? lse + b * sq : nullptr;
+  const float* deltab = softmax ? delta + b * sq : nullptr;
+
+  wg::load_tile_async<kBwdRows, D>(sK, k + b * sk * D, k0, sk);
+  wg::load_tile_async<kBwdRows, D>(sV, v + b * sk * D, k0, sk);
+  load_query_tile<D>(sRing, sStat, qb, dob, lseb, deltab, 0, sq);
+
+  float acc[NC / 2];  // dV (group 0) or dK (group 1), rows r and r + 8
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+  const float c2 = scale * 1.4426950408889634f;
+  const float inv_sk = 1.f / (float)sk;
+  // the first product's operands, and the second's B
+  const uint32_t sA = group == 0 ? sK : sV;
+  const uint32_t bOff1 = group == 0 ? 0 : C::kKvTile;  // Q or dO
+  const uint32_t bOff2 = group == 0 ? C::kKvTile : 0;  // dO or Q
+
+  const int n_tiles = (sq + BQ - 1) / BQ;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = t * BQ;
+    const uint32_t slot = sRing + (t % kBwdStages) * 2 * C::kKvTile;
+    const float* st = sStat + (t % kBwdStages) * 2 * BQ;  // lse, then D
+    wg::cp_async_wait_all();  // tile t has landed, this thread's part
+    wg::fence_async_proxy();
+    __syncthreads();          // everyone's part; tile t-1 is no longer read
+    const bool more = t + 1 < n_tiles;
+
+    // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1), 64 keys x BQ
+    float s[BQ / 2];
+    wg::wgmma_fence();
+    mma_rows<D, kBwdRows, BQ>(s, sA, slot + bOff1);
+    wg::wgmma_commit();
+    if (more) {
+      const int nt = (t + 1) % kBwdStages;
+      load_query_tile<D>(sRing + nt * 2 * C::kKvTile,
+                         sStat + nt * 2 * BQ, qb, dob, lseb, deltab,
+                         q0 + BQ, sq);
+    }
+    wg::wgmma_wait_all();
+    wg::fence_regs(s);
+
+    // s[4j + 2h + e]: key row 16 warp + lane / 4 + 8h, query
+    // q0 + 8j + 2 quad + e
+    const bool tail = q0 + BQ > sq;
+    if (group == 0) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int c = 8 * j + 2 * quad;
+        const float2 l2 = softmax
+            ? *reinterpret_cast<const float2*>(st + c) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool past = tail && q0 + c + e >= sq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            float p = softmax ? wg::fast_exp2(s[i] * c2 - (e ? l2.y : l2.x))
+                              : s[i] * inv_sk;
+            p = past ? 0.f : p;
+            s[i] = p;
+            sHand[i * 128 + tid] = p;
+          }
+        }
+      }
+      wg::bar_arrive(kBarHand, kThreads);
+    } else {
+      wg::bar_sync(kBarHand, kThreads);  // P^T is in sHand
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int c = 8 * j + 2 * quad;
+        const float2 d2 = softmax
+            ? *reinterpret_cast<const float2*>(st + BQ + c)
+            : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool past = tail && q0 + c + e >= sq;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h + e;
+            float ds = softmax
+                ? scale * sHand[i * 128 + tid] * (s[i] - (e ? d2.y : d2.x))
+                : s[i] * inv_sk;
+            s[i] = past ? 0.f : ds;
+          }
+        }
+      }
+    }
+
+    // dV += P^T dO (group 0) or dK += dS^T Q (group 1)
+    wg::fence_regs(acc);
+    wg::wgmma_fence();
+    mma_regs<NC, BQ>(acc, s, slot + bOff2, col0);
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(acc);
+  }
+
+  // Epilogue: bf16 rows of dV (group 0) and dK (group 1) staged in the dead
+  // tiles, 16 bytes a thread to device memory; rows past Sk are not stored.
+  __syncthreads();
+  unsigned char* stage = smem + group * kBwdRows * C::LDKV;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned char* row = stage + (16 * warp + (lane >> 2) + 8 * h) * C::LDKV;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(row + (8 * j + 2 * quad) * 2) =
+          wg::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  constexpr int CPR = NC / 8;  // 16-byte chunks a staged row
+  for (int i = threadIdx.x; i < 2 * kBwdRows * CPR; i += kThreads) {
+    const int g = i / (kBwdRows * CPR);
+    const int r = (i / CPR) % kBwdRows;
+    const int c = i % CPR;
+    if (k0 + r < sk) {
+      bf16* dst = (g == 0 ? dv : dk) + (b * sk + k0 + r) * D + col0 + c * 8;
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(
+          smem + (size_t)(g * kBwdRows + r) * C::LDKV + c * 16);
+    }
+  }
+}
+
+// dQ of QROWS query rows: every key tile streams past. Up to d = 256 each
+// warpgroup owns 64 of the rows and all columns; at d = 512 both own the
+// same 64 rows and 256 columns each.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int sq, int sk, int softmax,
+                           float scale) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  constexpr int NO = C::NC;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + kSmemAlign - 1) & ~(uint32_t)(kSmemAlign - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sdO = base + C::QROWS * D * 2;
+  const uint32_t sRing = base + C::kQOwn;
+
+  const int group = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int quad = lane & 3;
+  const int q0 = blockIdx.x * C::QROWS;
+  const int grow = C::kWide ? 0 : kBwdRows * group;  // group's rows
+  const int col0 = C::kWide ? NO * group : 0;       // group's columns
+  const size_t b = blockIdx.y;
+  const bf16* kb = k + b * sk * D;
+  const bf16* vb = v + b * sk * D;
+  // a warpgroup whose rows all lie past Sq loads its share and computes nothing
+  const bool active = q0 + grow < sq;
+
+  wg::load_tile_async<C::QROWS, D>(sQ, q + b * sq * D, q0, sq);
+  wg::load_tile_async<C::QROWS, D>(sdO, dout + b * sq * D, q0, sq);
+  load_key_tile<D>(sRing, kb, vb, 0, sk);  // one group with Q and dO
+
+  // this lane's two rows' statistics (zeros past Sq and for dot_product)
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + grow + 16 * warp + (lane >> 2) + 8 * h;
+    const bool ok = softmax && qi < sq;
+    lse_r[h] = ok ? lse[b * sq + qi] : 0.f;
+    d_r[h] = ok ? delta[b * sq + qi] : 0.f;
+  }
+  float acc[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
+  const float c2 = scale * 1.4426950408889634f;
+  const float inv_sk = 1.f / (float)sk;
+
+  const int n_tiles = (sk + BK - 1) / BK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int key0 = t * BK;
+    const uint32_t slot = sRing + (t % kBwdStages) * 2 * C::kQTile;
+    wg::cp_async_wait_all();
+    wg::fence_async_proxy();
+    __syncthreads();
+    const bool more = t + 1 < n_tiles;
+    const uint32_t next = sRing + ((t + 1) % kBwdStages) * 2 * C::kQTile;
+    if (!active) {
+      if (more) load_key_tile<D>(next, kb, vb, key0 + BK, sk);
+      continue;
+    }
+
+    // S = Q K^T and dP = dO V^T, 64 rows x BK keys each
+    float s[BK / 2], dp[BK / 2];
+    wg::wgmma_fence();
+    mma_rows<D, C::QROWS, BK>(s, sQ + grow * 128, slot);
+    mma_rows<D, C::QROWS, BK>(dp, sdO + grow * 128, slot + C::kQTile);
+    wg::wgmma_commit();
+    if (more) load_key_tile<D>(next, kb, vb, key0 + BK, sk);
+    wg::wgmma_wait_all();
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+
+    // dS in place of dP: [4j + 2h + e] is row r + 8h, key key0 + 8j + 2 quad + e
+    const bool tail = key0 + BK > sk;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool past = tail && key0 + 8 * j + 2 * quad + e >= sk;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          const float ds = softmax
+              ? scale * wg::fast_exp2(s[i] * c2 - lse_r[h]) * (dp[i] - d_r[h])
+              : dp[i] * inv_sk;
+          dp[i] = past ? 0.f : ds;
+        }
+      }
+    }
+
+    // dQ += dS K: K as the MN-major B operand, this group's columns
+    wg::fence_regs(acc);
+    wg::wgmma_fence();
+    mma_regs<NO, BK>(acc, dp, slot, col0);
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(acc);
+  }
+
+  // Epilogue: bf16 rows staged in the dead Q / dO tiles, 16-byte stores.
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned char* row =
+          smem + (size_t)(grow + 16 * warp + (lane >> 2) + 8 * h) * C::LDQ;
+#pragma unroll
+      for (int j = 0; j < NO / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(row + (col0 + 8 * j + 2 * quad) * 2) =
+            wg::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  constexpr int CPR = D / 8;
+  for (int i = threadIdx.x; i < C::QROWS * CPR; i += kThreads) {
+    const int r = i / CPR;
+    const int c = i % CPR;
+    if (q0 + r < sq) {
+      *reinterpret_cast<uint4*>(dq + (b * sq + q0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + (size_t)r * C::LDQ + c * 16);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int b, int sq,
+                   int sk, int softmax, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const bf16* tq = static_cast<const bf16*>(q);
+  const bf16* tk = static_cast<const bf16*>(k);
+  const bf16* tv = static_cast<const bf16*>(v);
+  const bf16* tdo = static_cast<const bf16*>(dout);
+  if (softmax) {
+    const int rows = b * sq;
+    bwd::nl_attn_bwd_rowdot_kernel<bf16>
+        <<<(rows + bwd::kBwdWarps - 1) / bwd::kBwdWarps, bwd::kBwdThreads, 0,
+           stream>>>(static_cast<const bf16*>(o), tdo, delta, rows, D);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      nl_attn_bwd_wgmma_kv_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kKvBytes);
+  if (err != cudaSuccess) return err;
+  nl_attn_bwd_wgmma_kv_kernel<D>
+      <<<dim3((sk + kBwdRows - 1) / kBwdRows, D / C::NC, b), kThreads,
+         C::kKvBytes, stream>>>(tq, tk, tv, tdo, lse, delta,
+                                static_cast<bf16*>(dk),
+                                static_cast<bf16*>(dv), sq, sk, softmax,
+                                scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(nl_attn_bwd_wgmma_q_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kQBytes);
+  if (err != cudaSuccess) return err;
+  nl_attn_bwd_wgmma_q_kernel<D>
+      <<<dim3((sq + C::QROWS - 1) / C::QROWS, b), kThreads, C::kQBytes,
+         stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), sq,
+                   sk, softmax, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wgb
+
+// The wgmma backward: bf16 only. Pointers and shapes as nl_attn_bwd's (no
+// is_bf16). Requires d in {64, 128, 256, 512}, sq >= 1, sk >= 1,
+// 1 <= b <= 65535; anything else is cudaErrorInvalidValue. Three launches on
+// the stream (D for softmax, the dK / dV pass, the dQ pass); returns a
+// cudaError_t.
+extern "C" int nl_attn_bwd_wgmma(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const float* lse, float* delta, void* dq,
+                                 void* dk, void* dv, int b, int sq, int sk,
+                                 int d, int kind, float scale, void* stream) {
+  if (b < 1 || b > 65535 || sq < 1 || sk < 1 || (kind != 0 && kind != 1) ||
+      (kind == 0 && (lse == nullptr || delta == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int softmax = kind == 0;
+  switch (d) {
+    case 64:
+      return (int)wgb::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
+                                  sq, sk, softmax, scale, s);
+    case 128:
+      return (int)wgb::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   b, sq, sk, softmax, scale, s);
+    case 256:
+      return (int)wgb::launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   b, sq, sk, softmax, scale, s);
+    case 512:
+      return (int)wgb::launch<512>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   b, sq, sk, softmax, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -74,17 +74,20 @@ def build(name: str) -> Path:
 
 @functools.cache
 def load_nonlocal_attn() -> ctypes.CDLL:
-    """The non-local attention library (both forward entries and the
-    backward), built on first call."""
+    """The non-local attention library (both forward entries and both
+    backward entries), built on first call."""
     lib = ctypes.CDLL(str(build("nonlocal_attn")))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     shared = [ptr] * 5 + [i32] * 5 + [ctypes.c_float]  # q k v o lse ...
     lib.nl_attn_fwd.argtypes = shared + [i32, ptr]  # is_bf16, stream
     lib.nl_attn_fwd_wgmma.argtypes = shared + [ptr]
-    lib.nl_attn_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float,
-                                                         i32, ptr]
-    lib.nl_attn_fwd.restype = lib.nl_attn_fwd_wgmma.restype = i32
-    lib.nl_attn_bwd.restype = i32
+    # q k v o dout lse delta dq dk dv, b sq sk d kind, scale
+    bwd = [ptr] * 10 + [i32] * 5 + [ctypes.c_float]
+    lib.nl_attn_bwd.argtypes = bwd + [i32, ptr]  # is_bf16, stream
+    lib.nl_attn_bwd_wgmma.argtypes = bwd + [ptr]
+    for fn in (lib.nl_attn_fwd, lib.nl_attn_fwd_wgmma, lib.nl_attn_bwd,
+               lib.nl_attn_bwd_wgmma):
+        fn.restype = i32
     return lib
 
 

@@ -10,11 +10,15 @@ accumulators, a K/V ring filled ahead of the products) takes bfloat16 at
 d in {64, 128, 256, 512}; ``nl_attn_fwd`` takes float32 and every other
 width. :func:`kernel_entry` says which, from dtype and d alone.
 
-Training adds a third entry, ``nl_attn_bwd`` (the gradient: dQ, dK and dV
-from dO, recomputing the probabilities from each row's log-sum-exp, which
-either forward entry writes on request), and :class:`NonLocalAttnFn`, the
-``torch.autograd.Function`` around the routed forward and the backward.
-:func:`nonlocal_attention` takes it on CUDA when an input requires grad.
+Training adds two backward entries (the gradient: dQ, dK and dV from dO,
+recomputing the probabilities from each row's log-sum-exp, which either
+forward entry writes on request): ``nl_attn_bwd_wgmma`` (wgmma, register
+accumulators, a cp.async ring) takes bfloat16 at the same four widths,
+``nl_attn_bwd`` float32 and every other width; :func:`bwd_kernel_entry`
+routes as :func:`kernel_entry` does. :class:`NonLocalAttnFn` is the
+``torch.autograd.Function`` around the routed forward and the routed
+backward; :func:`nonlocal_attention` takes it on CUDA when an input requires
+grad.
 
 Numerics follow the JAX package's ``_einsum_attention``, which is what it
 runs at these shapes (and what ``jax.grad`` differentiates in training):
@@ -34,7 +38,9 @@ from . import _build
 
 KINDS = ("softmax", "dot_product")
 ENTRIES = ("nl_attn_fwd_wgmma", "nl_attn_fwd")  # the forward entries
-BWD_ENTRY = "nl_attn_bwd"
+BWD_ENTRY = "nl_attn_bwd"  # the wmma / float32 backward entry
+WGMMA_BWD_ENTRY = "nl_attn_bwd_wgmma"
+BWD_ENTRIES = (WGMMA_BWD_ENTRY, BWD_ENTRY)
 WGMMA_WIDTHS = (64, 128, 256, 512)
 LOG2E = math.log2(math.e)
 
@@ -43,7 +49,7 @@ LOG2E = math.log2(math.e)
 # and which entry): the total, and the same launches by C entry, backward
 # included
 LAUNCHES = 0
-LAUNCHES_BY_ENTRY = {name: 0 for name in ENTRIES + (BWD_ENTRY,)}
+LAUNCHES_BY_ENTRY = {name: 0 for name in ENTRIES + BWD_ENTRIES}
 
 # The wgmma kernel's tiling, mirrored from csrc/nonlocal_attn.cu (namespace
 # wg; tests hold the two equal): bytes a block may use, tile alignment, ring
@@ -57,6 +63,20 @@ WGMMA_BLOCK_K_SPLIT = 32
 WGMMA_SPLIT_ABOVE = 256
 WGMMA_ROWS_PER_GROUP = 64
 WGMMA_GROUPS = 2
+
+# The wgmma backward's tiling, mirrored from csrc/nonlocal_attn.cu (namespace
+# wgb; tests hold the two equal): rows of one warpgroup, ring slots, the
+# widest output one warpgroup keeps, queries a streamed tile of the dK / dV
+# pass (and at d = 512), keys a streamed tile of the dQ pass at d <= 128, 256
+# and 512.
+WGMMA_BWD_ROWS = 64
+WGMMA_BWD_STAGES = 2
+WGMMA_BWD_CHUNK = 256
+WGMMA_BWD_KV_BLOCK_Q = 64
+WGMMA_BWD_KV_BLOCK_Q_WIDE = 16
+WGMMA_BWD_Q_BLOCK_K = 64
+WGMMA_BWD_Q_BLOCK_K_MID = 32
+WGMMA_BWD_Q_BLOCK_K_WIDE = 16
 
 
 def reset_launches() -> None:
@@ -78,6 +98,15 @@ def kernel_entry(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.bfloat16 and d in WGMMA_WIDTHS:
         return "nl_attn_fwd_wgmma"
     return "nl_attn_fwd"
+
+
+def bwd_kernel_entry(dtype: torch.dtype, d: int) -> str:
+    """The backward's C entry for (dtype, d), as :func:`kernel_entry` routes
+    the forward: bfloat16 at d in {64, 128, 256, 512} to the wgmma kernel,
+    everything else to ``nl_attn_bwd``. Raises on what neither takes."""
+    if kernel_entry(dtype, d) == "nl_attn_fwd_wgmma":
+        return WGMMA_BWD_ENTRY
+    return BWD_ENTRY
 
 
 def wgmma_block_k(d: int) -> int:
@@ -302,19 +331,65 @@ def bwd_smem_bytes(dtype: torch.dtype, d: int, kv: bool) -> int:
             + 2 * a128(size * qrows * ldp) + 4 * 2 * qrows)
 
 
+def bwd_wgmma_tiles(d: int) -> dict:
+    """{'kv': (keys, queries), 'q': (queries, keys)} per block and streamed
+    tile of the wgmma backward's two passes at d in {64, 128, 256, 512}, as
+    ``wgb::Cfg`` sets them: 64 own keys against 64 queries (16 at d = 512);
+    128 own queries (64 at d = 512) against 64 keys (32 at d = 256, 16 at
+    d = 512)."""
+    if d not in WGMMA_WIDTHS:
+        raise ValueError(f"{WGMMA_BWD_ENTRY} takes d in {WGMMA_WIDTHS}, got {d}")
+    wide = d > WGMMA_BWD_CHUNK
+    block_q = WGMMA_BWD_KV_BLOCK_Q_WIDE if wide else WGMMA_BWD_KV_BLOCK_Q
+    block_k = (WGMMA_BWD_Q_BLOCK_K_WIDE if wide else WGMMA_BWD_Q_BLOCK_K
+               if d <= 128 else WGMMA_BWD_Q_BLOCK_K_MID)
+    q_rows = WGMMA_BWD_ROWS * (1 if wide else 2)
+    return {"kv": (WGMMA_BWD_ROWS, block_q), "q": (q_rows, block_k)}
+
+
+def bwd_wgmma_smem_bytes(d: int, kv: bool) -> int:
+    """Shared memory of one block of a wgmma backward pass, as ``wgb::Cfg``
+    computes it. dK / dV: alignment slack, K and V of 64 keys, ring slots of
+    one Q and one dO tile, the slots' lse and D vectors, the float32 P^T
+    hand-over tile; dQ: slack, Q and dO of the block's rows, ring slots of
+    one K and one V tile."""
+    tiles = bwd_wgmma_tiles(d)
+    if kv:
+        keys, block_q = tiles["kv"]
+        return (WGMMA_SMEM_ALIGN + 2 * keys * d * 2
+                + WGMMA_BWD_STAGES * 2 * block_q * d * 2
+                + WGMMA_BWD_STAGES * 2 * block_q * 4 + keys * block_q * 4)
+    q_rows, block_k = tiles["q"]
+    return (WGMMA_SMEM_ALIGN + 2 * q_rows * d * 2
+            + WGMMA_BWD_STAGES * 2 * block_k * d * 2)
+
+
 def fused_attention_backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: Optional[torch.Tensor], kind: str = "softmax",
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, entry: Optional[str] = None,
 ):
-    """The backward kernel: (dq, dk, dv) in q's dtype from the forward's
+    """The backward kernels: (dq, dk, dv) in q's dtype from the forward's
     inputs, its output ``o``, the output's gradient ``do`` and, for softmax,
     the rows' log-sum-exp ``lse`` that ``fused_attention(...,
     with_lse=True)`` returned. Takes bfloat16 and float32 at every d the
-    forward takes; raises on anything else, as :func:`fused_attention`."""
+    forward takes; raises on anything else, as :func:`fused_attention`.
+
+    :func:`bwd_kernel_entry` picks the C entry from dtype and d. ``entry``
+    forces one of :data:`BWD_ENTRIES` instead and raises if that entry does
+    not take the input: ``nl_attn_bwd`` takes everything listed above,
+    ``nl_attn_bwd_wgmma`` only what ``bwd_kernel_entry`` routes to it. One
+    call counts one launch, whatever the entry launches inside."""
     global LAUNCHES
+    if entry is not None and entry not in BWD_ENTRIES:
+        raise ValueError(f"entry must be one of {BWD_ENTRIES}, got {entry!r}")
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if entry == WGMMA_BWD_ENTRY and not (
+            q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_WIDTHS):
+        raise ValueError(
+            f"{WGMMA_BWD_ENTRY} takes bfloat16 with d in {WGMMA_WIDTHS}; "
+            f"got {q.dtype}, d={q.shape[-1]}")
     _check_cuda_inputs("fused_attention_backward", (
         ("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
     b, sq, d = q.shape
@@ -327,7 +402,8 @@ def fused_attention_backward(
             "fused_attention_backward: q, o and do (B, Sq, d), k and v "
             "(B, Sk, d) of one dtype and device, got "
             f"{[tuple(t.shape) for t in (q, k, v, o, do)]}")
-    kernel_entry(q.dtype, d)  # raises on a dtype or d the kernels do not take
+    routed = bwd_kernel_entry(q.dtype, d)  # raises on what neither takes
+    entry = entry or routed
     if sq < 1 or sk < 1 or not 1 <= b <= 65535:
         raise ValueError(f"fused_attention_backward takes Sq, Sk >= 1 and "
                          f"1 <= B <= 65535; got B={b}, Sq={sq}, Sk={sk}")
@@ -343,18 +419,21 @@ def fused_attention_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load_nonlocal_attn()
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.nl_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), ptr(lse if kind == "softmax" else None), ptr(delta),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, d,
-            KINDS.index(kind), float(scale), int(q.dtype == torch.bfloat16),
-            stream)
+            KINDS.index(kind), float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if entry == WGMMA_BWD_ENTRY:
+            err = lib.nl_attn_bwd_wgmma(*args, stream)
+        else:
+            err = lib.nl_attn_bwd(*args, int(q.dtype == torch.bfloat16),
+                                  stream)
     if err:
-        raise RuntimeError(f"{BWD_ENTRY} launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     LAUNCHES += 1
-    LAUNCHES_BY_ENTRY[BWD_ENTRY] += 1
+    LAUNCHES_BY_ENTRY[entry] += 1
     return dq, dk, dv
 
 
@@ -388,18 +467,27 @@ def attention_backward_tiled_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     do: torch.Tensor, lse: Optional[torch.Tensor], kind: str, scale: float,
     block_q: Optional[int] = None, block_k: Optional[int] = None,
+    entry: Optional[str] = None,
 ):
-    """Plain PyTorch version that repeats the backward kernel's arithmetic:
-    tiles of ``block_q`` queries and ``block_k`` keys (the dK / dV pass's by
-    default), P recomputed from the stored log-sum-exp as 2^(S scale log2 e
-    - lse) with the rows and keys past the ends masked, D = rowsum(dO o O),
-    P and dS rounded to q's dtype before the products that take them, float32
-    accumulation. For the tests and the on-card comparison."""
+    """Plain PyTorch version that repeats the backward kernels' arithmetic:
+    tiles of ``block_q`` queries and ``block_k`` keys (by default the dK /
+    dV pass's of ``entry``: ``nl_attn_bwd_wgmma``'s for
+    :func:`bwd_wgmma_tiles`, else ``nl_attn_bwd``'s, which is also what
+    float64 and other widths take), P recomputed from the stored log-sum-exp
+    as 2^(S scale log2 e - lse) with the rows and keys past the ends masked,
+    D = rowsum(dO o O), P and dS rounded to q's dtype before the products
+    that take them, float32 accumulation. For the tests and the on-card
+    comparison."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     b, sq, d = q.shape
     sk = k.shape[1]
-    kv_tiles = bwd_tiles(q.dtype, d)["kv"]
+    if entry == WGMMA_BWD_ENTRY:
+        kv_tiles = bwd_wgmma_tiles(d)["kv"]
+    elif entry in (None, BWD_ENTRY):
+        kv_tiles = bwd_tiles(q.dtype, d)["kv"]
+    else:
+        raise ValueError(f"entry must be one of {BWD_ENTRIES}, got {entry!r}")
     block_q = block_q or kv_tiles[1]
     block_k = block_k or kv_tiles[0]
     wd = _work_dtype(q)
@@ -437,8 +525,9 @@ def _kernel_backward(q, k, v, o, do, lse, kind, scale):
 
 class NonLocalAttnFn(torch.autograd.Function):
     """Attention with the kernels on both sides: the routed forward entry
-    (which also writes the rows' log-sum-exp) and ``nl_attn_bwd``. Saves q,
-    k, v, the output and the statistics.
+    (which also writes the rows' log-sum-exp) and the routed backward entry
+    (:func:`bwd_kernel_entry`: ``nl_attn_bwd_wgmma`` for bfloat16 at the
+    four widths). Saves q, k, v, the output and the statistics.
 
     ``forward_impl(q, k, v, kind, scale) -> (out, lse)`` and
     ``backward_impl(q, k, v, out, dout, lse, kind, scale) -> (dq, dk, dv)``
