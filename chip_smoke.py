@@ -110,9 +110,40 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    videos/s, TFLOP/s by ``FlopCounterMode``), peak memory, and a
    ``torch.profiler`` breakdown of one update;
 19. ``vidsitu_tpu_torch.bench`` ``vbtrain`` and ``vbtrain16`` in process
-   (SlowFast R50 8x8, 8 videos a step, the second with grad_accum 2).
+   (SlowFast R50 8x8, 8 videos a step, the second with grad_accum 2);
+20. this slice's main path: ``python -m vidsitu_tpu_torch.main
+   --task_type=vb_arg`` in process, ``sfpret_txe_txd_vbarg`` at full width
+   (3+3 layers, d 1024, 8 heads), bf16 products, float32 parameters and
+   Adam, dropout on, flax's initial values, on a synthetic split's seeded
+   (5, 2048) features (32 train segments: 2 steps of 16 videos an epoch; 8
+   valid segments in one eval batch of 16): two epochs, each validated at
+   beam 5 on the reorder route, the best model validated again, then a
+   second call that resumes epoch 2's checkpoint by uid for a third. Finite
+   losses, every weight matrix moved, ``{uid}.ckpt``, the optimizer's step
+   count and the dropout generator's offset continued (3/2 of epoch 2's),
+   one pkl entry a segment with 5 events that start with their verbs, and
+   exactly one ``beam_gather_rows`` launch per decode step of every
+   validation;
+21. one SRL step at 16 videos on device tensors (the same model), bf16
+   against float32 from the same initial values, dropout off: loss within
+   1e-2 relative; every gradient that is well-conditioned at these weights
+   within 5e-2 of its scale (no less than 1e-3 of the model's largest
+   gradient): one whose float32 value moves by less than 1e-2 of its scale
+   when only the batch's float inputs are rounded to bf16 (a third step);
+   the others printed (see STEP_GRAD_TOL); then the bf16 step with dropout
+   on timed (ms, videos/s, TFLOP/s by ``FlopCounterMode``, peak memory) and
+   a ``torch.profiler`` breakdown of one step with the device-busy share;
+22. ``main.py --task_type=evrel`` for ``rob_evrel`` and ``sfpret_evrel`` at
+   roberta-base dims (12 layers, d 768, 12 heads, ffn 3072), 8 videos a
+   step, on the same split: two epochs plus the resumed third as in phase
+   20, the top-1 relation per pair and annotator in ``valid_0.pkl``, finite
+   ``Macro_Top_1`` / ``Top_1`` and validation loss; then phase 21's step
+   check and timing for each at 8 videos;
+23. ``vidsitu_tpu_torch.bench`` ``srl``, ``srl_real`` at the synthetic
+   vocabulary (427) and at GPT-2's (50,281), and ``evrel_real``, one JSON
+   line each.
 
-Phases 1-15 run as before, at the same depth and repeats.
+Phases 1-19 run as before, at the same depth and repeats.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
 before the last line, and as the last line
@@ -123,6 +154,7 @@ import functools
 import json
 import math
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -589,7 +621,7 @@ def phase_srl_profile(gen, batch):
     _, wall = timed_search(gen, batch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out, prof_wall = timed_search(gen, batch)
-    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    rows = kernel_rows(prof)
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     per_step = sum(e.count for e in rows) / out.steps
     log(f"[8 profile] reorder route, {out.steps} steps: device kernels "
@@ -1439,7 +1471,7 @@ def phase_train_step(dev):
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    rows = kernel_rows(prof)
     dev_ms = max(sum(e.self_device_time_total for e in rows) / 1e3, 1e-9)
     attn_ms = sum(e.self_device_time_total for e in rows
                   if "nl_attn" in e.key) / 1e3
@@ -1481,6 +1513,301 @@ def phase_bench_train(dev):
     return out
 
 
+# SRL (vb_arg) and evrel training: phases 20-23
+LANG_BS = {"vb_arg": 16, "evrel": 8}  # train.bs of phases 20 and 22
+# bf16 against float32 on one step, dropout off: the loss relative to
+# itself, each gradient relative to the larger of its leaf's scale and
+# 1e-3 of the largest gradient of the model (GRAD_FLOOR; a leaf whose
+# gradient is zero in exact arithmetic, such as the key projection's bias
+# under the softmax, holds rounding noise only). A gradient is held to
+# STEP_GRAD_TOL where it is well-conditioned: where the float32 step's own
+# gradient moves by less than WELL_COND of its scale when only the batch's
+# float inputs are rounded to bf16. At flax's initial values the SRL video
+# encoder's attention is saturated (its inputs are scaled by sqrt(d)), and
+# that one rounding alone moves those float32 gradients by tens of percents,
+# so no bf16 step can meet a per-leaf limit there; those are printed.
+# Gradients that are zero in exact arithmetic hold rounding noise only and
+# are not compared: a key bias adds the same q.b to every logit of a query,
+# which the softmax cancels; the SRL decoders cross-attend to one memory
+# slot, so the cross-attention's q / k projections get none.
+STEP_LOSS_TOL, STEP_GRAD_TOL, GRAD_FLOOR, WELL_COND = 1e-2, 5e-2, 1e-3, 1e-2
+ZERO_GRAD = re.compile(r"k_proj\.bias$|cross_attn\.[qk]_proj\.")
+
+
+def lang_train_args(uid, task, mdl, paths, root, *extra):
+    bs = LANG_BS[task]
+    return [uid, f"--task_type={task}", f"--mdl.mdl_name={mdl}",
+            "--train.dtype=bfloat16", f"--train.bs={bs}",
+            f"--train.bsv={bs}", "--train.nw=0", "--train.nwv=0",
+            "--train.epochs=2", "--train.lr=1e-4",
+            "--train.save_mdl_epochs=True",
+            f"--misc.tmp_path={root / 'tmp'}",
+            *[f"--{k}={v}" for k, v in paths.items()], "--device=cuda",
+            *extra]
+
+
+def gen_offset(state) -> int:
+    """A CUDA generator state's Philox offset (the state is the seed, then
+    the offset): it grows by the same amount every epoch of the same
+    shapes."""
+    return int(state.view(torch.int64)[1])
+
+
+def fit_and_resume(uid, task, mdl, paths, root, *extra):
+    """``main.py`` in process: two epochs (each validated, the best model
+    validated again), then a second call that resumes the epoch-2
+    checkpoint by uid for a third. Asserts finite losses, weights moved
+    from flax's initial values, ``{uid}.ckpt``, the optimizer's step count
+    and the dropout generator continued, not restarted. Returns both
+    results and the wall time of the first call."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.data import build_comm
+    from vidsitu_tpu_torch.models.selector import (
+        build_model,
+        init_model_variables,
+    )
+
+    n_train = len(json.loads(Path(paths["ds.vsitu.split_files_lb.train"])
+                             .read_text()))
+    steps = n_train // LANG_BS[task]
+    t0 = time.perf_counter()
+    res = port_main.main(lang_train_args(uid, task, mdl, paths, root, *extra))
+    wall = time.perf_counter() - t0
+    learner, cfg = res["learner"], res["cfg"]
+    recs = [json.loads(x) for x in (
+        Path(cfg.misc.tmp_path) / "tracking" / f"{cfg.expm.exp_name}_{task}"
+        / uid / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["trn_loss"] for r in recs]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert learner.model_file.is_file(), learner.model_file
+    fresh = init_model_variables(build_model(cfg, build_comm(cfg)),
+                                 int(cfg.train.seed)).state_dict()
+    trained = torch.load(learner.model_epoch_dir / "mdl_ep_2.ckpt",
+                         map_location="cpu", weights_only=True)
+    moved = {k: not torch.equal(trained["model_state_dict"][k], v)
+             for k, v in fresh.items()}
+    # the SRL decoders cross-attend to one memory slot per event: the
+    # softmax over one key is 1, so the cross-attention's q / k projections
+    # get zero gradients and stay where they started
+    stayed = [k for k, v in moved.items() if not v and fresh[k].dim() == 2
+              and not (mdl == "sfpret_txe_txd_vbarg" and re.search(
+                  r"cross_attn\.[qk]_proj", k))]
+    assert not stayed, f"weights that did not move: {stayed[:5]}"
+    off2 = gen_offset(trained["dropout_rng"])
+    res2 = port_main.main(lang_train_args(
+        uid, task, mdl, paths, root, *extra, "--train.resume=True",
+        "--train.epochs=1",
+        f"--train.resume_path={learner.model_epoch_dir / 'mdl_ep_2.ckpt'}",
+        "--run_final_val=False"))
+    l2 = res2["learner"]
+    opt_steps = int(l2.optimizer.state_dict()["state"][0]["step"])
+    off3 = gen_offset(l2.dropout_gen.get_state())
+    log(f"[{'20' if task == 'vb_arg' else '22'} {task}] main {mdl} bf16, "
+        f"{n_train} segments ({steps} steps of {LANG_BS[task]} videos), 2 "
+        f"epochs + final validation in {wall:.1f} s; train losses {losses}; "
+        f"{sum(moved.values())}/{len(moved)} tensors moved from the initial "
+        f"values (every weight matrix with a gradient among them); resumed: "
+        f"epoch {l2.num_epoch}, it {l2.num_it}, Adam step {opt_steps}, "
+        f"dropout generator offset {off2} after 2 epochs, {off3} after 3")
+    assert l2.num_epoch == 3 and l2.num_it == 3 * steps, (l2.num_epoch,
+                                                          l2.num_it)
+    assert opt_steps == 3 * steps, "optimizer state not restored"
+    assert off2 > 0 and 2 * off3 == 3 * off2, "dropout generator restarted"
+    return res, res2, wall
+
+
+def phase_srl_train_main(paths, root):
+    """Phase 20: SRL training through the entry point,
+    ``sfpret_txe_txd_vbarg`` at full width in bf16 on the synthetic split's
+    seeded (5, 2048) features, each validation at beam 5 on the reorder
+    route: one row-gather launch per decode step, one pkl entry a segment
+    whose events start with their verbs."""
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    B.LAUNCHES = 0
+    res, res2, wall = fit_and_resume(
+        "chip_smoke_srl_train", "vb_arg", "sfpret_txe_txd_vbarg", paths,
+        root, "--gen.beam_size=5", "--tpu.ancestry_beam=False")
+    ev, cfg = res["evaluator"], res["cfg"]
+    steps = ev.generate_fn.steps + res2["evaluator"].generate_fn.steps
+    launches = B.LAUNCHES
+    _, acc = res["results"]["valid"]
+    with open(res["pred_dir"] / "valid_0.pkl", "rb") as f:
+        preds = pickle.load(f)
+    n_valid = len(json.loads(Path(paths["ds.vsitu.split_files_lb.valid"])
+                             .read_text()))
+    log(f"[20 vb_arg] validations: {len(steps)} decode batches, steps "
+        f"{steps}, gather launches {launches} (the resumed epoch's included); "
+        f"valid metrics {acc}")
+    assert launches == sum(steps) > 0, (
+        f"row-gather launches {launches} != decode steps {sum(steps)}")
+    assert len(preds) == n_valid and sorted(
+        p["ann_idx"] for p in preds) == list(range(n_valid))
+    assert set(acc) == set(ev.met_keys) and all(
+        np.isfinite(v) for v in acc.values()), acc
+    batch = device_batch(cfg, "cpu")
+    wvoc = ev.comm.gpt2_hf_tok
+    verbs = batch["seq_out_by_ev"][:, :, 0, 0].numpy()
+    by_idx = {int(i): row for i, row in zip(batch["vseg_idx"], verbs)}
+    for p in preds:
+        assert set(p["vb_output"]) == {f"Ev{i}" for i in range(1, 6)}
+        for ev_ix in range(5):
+            want = wvoc.decode([int(by_idx[p["ann_idx"]][ev_ix])])
+            got = p["vb_output"][f"Ev{ev_ix + 1}"].get("vb_id", "")
+            assert got.startswith(want), (p["ann_idx"], ev_ix, got, want)
+    return launches, wall
+
+
+def step_check(tag, task, mdl, bs, dev, extra=None):
+    """One train step of ``bs`` videos on device tensors in bf16 and in
+    float32 from the same flax initial values, dropout off (``eval()``):
+    loss and gradients compared (see STEP_GRAD_TOL); a third float32 step
+    on the batch's float inputs rounded to bf16 tells the well-conditioned
+    gradients apart. Then the bf16 step with dropout on timed (median of
+    10 by CUDA events), peak memory, FLOPs by ``FlopCounterMode`` and a
+    ``torch.profiler`` breakdown of one step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vidsitu_tpu_torch.bench import (
+        REAL_TX,
+        make_lang_train,
+        profile_step,
+        train_step_fn,
+    )
+
+    extra = REAL_TX if extra is None else extra
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_step_") as tmp:
+        for key, dtype in (("f32", "float32"), ("f32_rounded", "float32"),
+                           ("bf16", "bfloat16")):
+            model, opt, batch, _ = make_lang_train(
+                task, mdl, bs, dev, Path(tmp), extra,
+                {"train.dtype": dtype})
+            if key == "f32_rounded":
+                batch = {k: v.to(torch.bfloat16).float()
+                         if v.is_floating_point() else v
+                         for k, v in batch.items()}
+            model.eval()
+            loss = model(batch)["loss"]
+            loss.backward()
+            runs[key] = (loss.item(), {n: p.grad.float() for n, p in
+                                       model.named_parameters()
+                                       if p.grad is not None})
+            if key != "bf16":
+                del model, opt, batch
+                torch.cuda.empty_cache()
+    l32, g32 = runs["f32"]
+    l16, g16 = runs["bf16"]
+    g_rnd = runs["f32_rounded"][1]
+    assert set(g16) == set(g32) == set(g_rnd) and g32
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in g32.values())
+
+    def rel(g, n):
+        return (g[n] - g32[n]).abs().max().item() / max(
+            g32[n].abs().max().item(), floor)
+
+    names = [n for n in g32 if not ZERO_GRAD.search(n)]
+    errs = {n: rel(g16, n) for n in names}
+    cond = {n: rel(g_rnd, n) for n in names}
+    held = [n for n in names if cond[n] < WELL_COND]
+    worst = max(held, key=errs.get)
+    loose = sorted((n for n in names if n not in held),
+                   key=lambda n: -errs[n])
+    loss_err = abs(l16 - l32) / abs(l32)
+    log(f"[{tag} step] {mdl}, {bs} videos, dropout off: loss bf16 {l16:.5f} "
+        f"vs float32 {l32:.5f} (rel {loss_err:.2e}, limit {STEP_LOSS_TOL:g}); "
+        f"{len(held)} of {len(errs)} gradients well-conditioned "
+        f"({len(g32) - len(names)} zero in exact arithmetic left out), worst "
+        f"{errs[worst]:.2e} of its scale at {worst} (limit "
+        f"{STEP_GRAD_TOL:g}); the other {len(loose)}: bf16 error up to "
+        f"{max([errs[n] for n in loose], default=0):.2e}, float32 moved by "
+        f"rounding the inputs alone up to "
+        f"{max([cond[n] for n in loose], default=0):.2e}")
+    for n in loose[:6]:
+        log(f"    {errs[n]:.2e} bf16, {cond[n]:.2e} rounded inputs: {n}")
+    assert np.isfinite(l16) and loss_err <= STEP_LOSS_TOL
+    assert errs[worst] <= STEP_GRAD_TOL, worst
+    model.train()
+    step = train_step_fn(model, opt, batch,
+                         torch.Generator(device=dev).manual_seed(7))
+    with FlopCounterMode(display=False) as counter:
+        step()
+    flops = float(counter.get_total_flops())
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = float(np.median(cuda_ms(step, 10)))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rows, wall = profile_step(step, dev)
+    dev_ms = max(sum(e.self_device_time_total for e in rows) / 1e3, 1e-9)
+    n_kernels = sum(e.count for e in rows)
+    log(f"[{tag} step] bf16 with dropout: {ms:.2f} ms = {bs * 1e3 / ms:.2f} "
+        f"videos/s, {flops / ms / 1e9:.1f} TFLOP/s ({flops:.4g} FLOP by "
+        f"FlopCounterMode, {100 * flops / ms / 1e9 / 989:.1f} % of the bf16 "
+        f"peak), peak memory {peak:.2f} GiB")
+    log(f"[{tag} profile] one step: device kernels {dev_ms:.2f} ms, "
+        f"{n_kernels} launches, against {wall * 1e3:.2f} ms unprofiled wall "
+        f"(device busy {100 * dev_ms / wall / 1e3:.1f} %)")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+            f"{100 * e.self_device_time_total / 1e3 / dev_ms:5.1f} % "
+            f"{e.count:6d}x  {e.key[:80]}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return {"videos": bs, "ms": ms, "tflops": flops / ms / 1e9,
+            "peak_gib": peak, "device_busy": dev_ms / wall / 1e3,
+            "loss_rel_err": loss_err, "grad_rel_err": errs[worst],
+            "grads_held": len(held), "grads": len(errs),
+            "grad_rel_err_rest": max([errs[n] for n in loose], default=0.0)}
+
+
+def phase_evrel_main(paths, root):
+    """Phase 22: evrel training through the entry point for ``rob_evrel``
+    and ``sfpret_evrel`` at roberta-base dims: the top-1 relation per pair
+    and annotator in ``valid_0.pkl``, finite metrics."""
+    out = {}
+    for mdl in ("rob_evrel", "sfpret_evrel"):
+        res, _, wall = fit_and_resume(f"chip_smoke_{mdl}", "evrel", mdl,
+                                      paths, root)
+        loss, acc = res["results"]["valid"]
+        with open(res["pred_dir"] / "valid_0.pkl", "rb") as f:
+            preds = pickle.load(f)
+        opp = set(res["evaluator"].comm.evrel_dct_opp.values())
+        assert preds and all(
+            len(p["pred_evrels_ev"]) == 4 and all(
+                r in opp for row in p["pred_evrels_ev"] for r in row)
+            for p in preds), "top-1 relation per pair"
+        assert set(acc) == {"Macro_Top_1", "Top_1"} and all(
+            np.isfinite(v) for v in acc.values()) and np.isfinite(
+            loss["loss"]), (loss, acc)
+        log(f"[22 evrel] {mdl}: {len(preds)} segments x 4 pairs in "
+            f"valid_0.pkl, valid loss {loss['loss']:.4f}, metrics {acc}")
+        out[mdl] = wall
+    return out
+
+
+def phase_bench_lang(dev):
+    """Phase 23: ``vidsitu_tpu_torch.bench`` srl, srl_real at the synthetic
+    and at GPT-2's vocabulary, evrel_real, in process."""
+    from vidsitu_tpu_torch import bench
+
+    name = torch.cuda.get_device_name(dev)
+    out = []
+    for args, metric in ((["srl"], "srl_train_throughput"),
+                         (["srl_real"], "srl_train_throughput_d1024"),
+                         (["srl_real", f"--vocab={REAL_VOCAB}"],
+                          f"srl_train_throughput_d1024_v{REAL_VOCAB}"),
+                         (["evrel_real"], "evrel_train_throughput_robbase")):
+        (res,) = bench.main(args)
+        assert res["metric"] == metric and res["device"] == name, res
+        assert np.isfinite(res["value"]) and res["value"] > 0, res
+        assert 0 < res["device_busy"] and res["peak_gib"] > 0, res
+        out.append(res)
+        torch.cuda.empty_cache()
+    log("[23 bench] " + ", ".join(
+        f"{r['metric']} {r['value']} videos/s ({r['tflops']} TFLOP/s, busy "
+        f"{100 * r['device_busy']:.1f} %)" for r in out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1490,8 +1817,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    global cuda_ms, medians_in_turns
-    from vidsitu_tpu_torch.timing import cuda_ms, medians_in_turns
+    global cuda_ms, kernel_rows, medians_in_turns
+    from vidsitu_tpu_torch.timing import (
+        cuda_ms,
+        kernel_rows,
+        medians_in_turns,
+    )
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1564,6 +1895,19 @@ def main() -> int:
     step_res = phase_train_step(dev)
     bench_train = phase_bench_train(dev)
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lang_") as tmp:
+        root = Path(tmp)
+        paths = make_synth_dataset(root / "data", n_train=32, n_valid=8,
+                                   n_test=1, seed=29)
+        srl_train_launches, srl_train_wall = phase_srl_train_main(paths, root)
+        srl_step = step_check("21", "vb_arg", "sfpret_txe_txd_vbarg",
+                              LANG_BS["vb_arg"], dev)
+        evrel_walls = phase_evrel_main(paths, root)
+    evrel_steps = {mdl: step_check("22", "evrel", mdl, LANG_BS["evrel"], dev,
+                                   extra={})
+                   for mdl in ("rob_evrel", "sfpret_evrel")}
+    bench_lang = phase_bench_lang(dev)
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert not leaked, f"jax was imported: {leaked[:5]}"
@@ -1611,7 +1955,13 @@ def main() -> int:
                    "benchmarks/probe_beam_gather.py:62", gather_launches,
                    gather_err, gather_times[0], gather_times[1],
                    gather_times[2], gather_times[3], gather_times[1],
-                   launches_slice=slice_launches["beam_gather_rows"]),
+                   launches_slice=slice_launches["beam_gather_rows"],
+                   launches_srl_train=srl_train_launches,
+                   srl_train_main_wall_s=srl_train_wall,
+                   srl_train_step=srl_step, evrel_train_step=evrel_steps,
+                   evrel_train_main_wall_s=evrel_walls,
+                   bench_lang_train={r["metric"]: r["value"]
+                                     for r in bench_lang}),
         *(kernel_row(
             entry, "fused_bottleneck.cu", replaces, slice_launches[entry],
             fused_err[entry], fb256[key], fused_plain_ms, *fb_bound,

@@ -1,8 +1,8 @@
 """The port's measuring entry point (``python -m vidsitu_tpu_torch.bench``)
 on the CPU at tiny sizes: well-formed JSON lines under the JAX bench's metric
-names, the training modes not ported yet refused, the gates refused off the card, and the
-analytic decode-traffic count equal to the JAX bench's (root ``bench.py``
-imports JAX only inside its functions).
+names (the SRL and evrel training modes among them), the gates refused off
+the card, and the analytic decode-traffic count equal to the JAX bench's
+(root ``bench.py`` imports JAX only inside its functions).
 """
 
 import json
@@ -72,10 +72,32 @@ def test_decode_real_names_its_width_in_the_metric():
     _check_cpu_line(res, "srl_beam5_decode_latency_d1024")
 
 
-@pytest.mark.parametrize("mode", bench.TRAINING_MODES)
-def test_training_modes_are_not_ported_yet(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench.main([mode, "--device=cpu"])
+TINY_LANG = ["--tx_dec.decoder_embed_dim=64", "--tx_dec.encoder_embed_dim=64",
+             "--tx_dec.decoder_ffn_embed_dim=64",
+             "--tx_dec.encoder_ffn_embed_dim=64", "--tx_dec.decoder_layers=2",
+             "--tx_dec.encoder_layers=2", "--rob_mdl.d_model=64",
+             "--rob_mdl.n_layers=2", "--rob_mdl.n_heads=4",
+             "--rob_mdl.ffn_dim=128"]
+
+
+@pytest.mark.parametrize("args,metric,vocab", [
+    (["srl"], "srl_train_throughput", 427),
+    (["srl_real", "--vocab=1000"], "srl_train_throughput_d1024_v1000", 1000),
+    (["evrel_real"], "evrel_train_throughput_robbase", 389),
+])
+def test_lang_train_modes_print_one_json_line_on_cpu(args, metric, vocab):
+    """The JAX bench's srl / srl_real / evrel_real: forward with dropout on,
+    backward and Adam on device tensors, one JSON line each; the vocabulary
+    named (``--vocab`` widens the SRL output layer)."""
+    torch.set_num_threads(1)
+    (res,) = bench.main([args[0], "2", "1", "--device=cpu", *args[1:],
+                         *TINY_LANG])
+    _check_cpu_line(res, metric)
+    assert res["unit"] == "videos/sec/cpu" and res["bs"] == 2
+    assert res["vocab"] == vocab and res["dtype"] == "float32"
+    assert res["flops_per_step"] > 0 and res["ms_per_step"] > 0
+    # device-only numbers are not taken on the CPU
+    assert res["peak_gib"] is None and res["device_busy"] is None
 
 
 @pytest.mark.parametrize("mode,metric,accum", [

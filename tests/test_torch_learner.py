@@ -101,11 +101,36 @@ def test_cli_without_device_raises_where_no_gpu(env, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(env):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        port_main.main(cli_args(env, "evrel", "--device=cpu",
-                                "--task_type=evrel"))
     with pytest.raises(NotImplementedError, match="orbax"):
         get_backend("orbax")
+
+
+def test_checkpoint_keeps_the_dropout_generator(env):
+    """The dropout generator lives on the training device, is seeded from
+    train.seed, goes into every checkpoint, and a resume restores it."""
+    learner = build_learner(mk(env, "drop"), "drop", "cpu")
+    gen = learner.dropout_gen
+    assert gen.device == learner.device
+    assert torch.equal(gen.get_state(), torch.Generator().manual_seed(
+        int(learner.cfg.train.seed)).get_state())
+    torch.rand(7, generator=gen)  # as a training step would
+    state = gen.get_state()
+    learner.save_model_dict()
+    saved = torch.load(learner.model_file, weights_only=True)
+    assert torch.equal(saved["dropout_rng"], state)
+    resumed = build_learner(mk(env, "drop", **{"train.resume": True}),
+                            "drop", "cpu")
+    assert torch.equal(resumed.dropout_gen.get_state(), state)
+
+
+def test_validation_runs_in_eval_mode_and_returns_to_train(env, monkeypatch):
+    learner = build_learner(mk(env, "modes"), "modes", "cpu")
+    seen = []
+    monkeypatch.setattr(learner, "eval_fn", lambda dl, name, path: (
+        seen.append(learner.model.training) or ({"loss": 0.0}, {})))
+    learner.model.train()
+    learner.validate()
+    assert seen == [False] and learner.model.training
 
 
 def test_overfit_batch_lowers_the_loss(env):

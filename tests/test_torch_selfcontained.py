@@ -168,3 +168,81 @@ def test_port_runs_with_the_jax_package_blocked():
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     last = proc.stdout.strip().splitlines()[-1].split()
     assert last[0] == "OK" and int(last[1]) > 40, proc.stdout[-500:]
+
+
+# the JAX modules that each port module re-implements (no copy: they import
+# jax or flax), for the language models of the SRL and evrel slice
+REIMPLEMENTED = {
+    "models/roberta.py": "models/roberta.py",
+    "models/evrel_models.py": "models/evrel_models.py",
+    "models/lang_utils.py": "models/lang_utils.py",
+    "models/rel_transformer.py": "models/rel_transformer.py",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(REIMPLEMENTED))
+def test_language_modules_are_reimplemented_not_imported(rel):
+    """Each module has its JAX original beside it, which imports flax, and
+    imports nothing banned itself."""
+    port, orig = PORT / rel, JAX_PKG / REIMPLEMENTED[rel]
+    assert port.is_file() and orig.is_file()
+    assert "flax" in {root for root, _ in _imported_roots(orig)}
+    bad = [root for root, _ in _imported_roots(port) if root in BANNED]
+    assert not bad, bad
+
+
+_BLOCKED_TRAIN = r"""
+import sys, tempfile
+from pathlib import Path
+
+BANNED = %r
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import torch
+from vidsitu_tpu_torch.data.synth import make_synth_dataset
+from vidsitu_tpu_torch.train.build import build_learner
+from vidsitu_tpu_torch.train.learner import batch_to_device
+from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+torch.set_num_threads(1)
+tiny = {"tx_dec.decoder_embed_dim": 32, "tx_dec.encoder_embed_dim": 32,
+        "tx_dec.decoder_ffn_embed_dim": 32, "tx_dec.encoder_ffn_embed_dim": 32,
+        "tx_dec.decoder_layers": 1, "tx_dec.encoder_layers": 1,
+        "rob_mdl.d_model": 32, "rob_mdl.n_layers": 1, "rob_mdl.n_heads": 2,
+        "rob_mdl.ffn_dim": 32}
+with tempfile.TemporaryDirectory() as tmp:
+    paths = make_synth_dataset(Path(tmp) / "data", n_train=2, n_valid=1)
+    for task, mdl in (("vb_arg", "sfpret_txe_txd_vbarg"),
+                      ("evrel", "sfpret_evrel")):
+        cfg = get_cfg_with_overrides("alone", **{
+            **paths, **tiny, "task_type": task, "mdl.mdl_name": mdl,
+            "train.bs": 2, "train.bsv": 2, "train.nw": 0, "train.nwv": 0,
+            "train.dtype": "float32", "misc.tmp_path": str(Path(tmp) / "t")})
+        learner = build_learner(cfg, "alone_" + task, "cpu")
+        learner.prepare_optimizer(1e-3)
+        batch = batch_to_device(next(iter(learner.data.train_dl)),
+                                learner.device)
+        assert torch.isfinite(learner.train_step(batch))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_srl_and_evrel_train_steps_run_with_the_jax_package_blocked():
+    """One SRL and one evrel train step with dropout on, through the
+    port's build_learner, in a process where the banned names cannot be
+    imported."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_TRAIN % (BANNED,)], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert proc.stdout.strip().splitlines()[-1] == "OK"

@@ -165,8 +165,6 @@ def test_cli_loads_state_dict_file(env, tmp_path):
 
 @pytest.mark.parametrize("extra,error", [
     ((), SystemExit),                                  # no weights
-    (("--only_val=False",), NotImplementedError),      # training
-    (("--task_type=evrel", "--only_val=True"), NotImplementedError),
 ])
 def test_cli_refusals(env, extra, error):
     paths, root, comm, _ = env

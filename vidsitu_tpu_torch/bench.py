@@ -6,6 +6,7 @@
     python -m vidsitu_tpu_torch.bench feed [segments] [iters]      # host only
     python -m vidsitu_tpu_torch.bench gates [--batch]
     python -m vidsitu_tpu_torch.bench vbtrain|vbtrain16 [videos] [iters]
+    python -m vidsitu_tpu_torch.bench srl|srl_real|evrel_real [bs] [iters] [--vocab=N]
     python -m vidsitu_tpu_torch.bench all
 
 Flags: ``--device=cuda`` (the default; raises when no GPU is visible, never
@@ -18,8 +19,13 @@ keys: achieved GB/s and TFLOP/s and their shares of the card's published
 peaks, with the card named in ``roofline_of``. A line from the CPU carries
 no roofline (the keys are null). Times on a GPU are CUDA-event medians over
 queued calls after one warm-up (``timing.py``). ``vbtrain`` and
-``vbtrain16`` time the verb model's train step; the JAX bench's SRL and
-evrel training modes are not ported yet and raise ``NotImplementedError``.
+``vbtrain16`` time the verb model's train step; ``srl`` (narrow dims, 32
+videos), ``srl_real`` (the reference's d 1024, 16 videos) and
+``evrel_real`` (roberta-base, 8 videos) time the SRL and evrel train steps
+with dropout on, the JAX bench's modes (its ``bench_srl_train``);
+``--vocab=N`` builds the SRL model over N output classes (GPT-2's 50,281
+instead of the synthetic vocabulary's 427) to time the output layer at
+its real size.
 """
 
 from __future__ import annotations
@@ -35,15 +41,13 @@ import numpy as np
 import torch
 
 from .extract import resolve_device
-from .timing import call_ms
+from .timing import call_ms, kernel_rows
 
 # Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at the
 # full 700 W power limit): HBM3 bandwidth and bf16 tensor-core rate
 H100_HBM_GBPS = 3350.0
 H100_BF16_TFLOPS = 989.0
 
-# training modes not ported yet
-TRAINING_MODES = ("srl", "srl_real", "evrel_real")
 VB_CLASSES = 2154  # the JAX bench's verb vocabulary size
 ROOFLINE_KEYS = ("hbm_gbps", "tflops", "hbm_frac", "flops_frac",
                  "roofline_frac", "roofline_of")
@@ -265,6 +269,167 @@ def bench_vb_train(videos: int = 8, iters: int = 4, accum: int = 1,
     }
 
 
+def make_lang_train(task: str, mdl_name: str, bs: int, device, root: Path,
+                    extra: Optional[Dict] = None,
+                    overrides: Optional[Dict] = None,
+                    vocab: Optional[int] = None, seed: int = 1):
+    """An SRL or evrel model with flax's initial values from ``seed``,
+    float32 parameters on ``device`` in ``train()`` (products in
+    ``train.dtype``), its Adam(0.9, 0.99), and one train batch of ``bs``
+    videos of a synthetic split written under ``root``, on the device.
+    ``vocab`` widens the SRL model's vocabulary (the batch's token ids stay
+    those of the synthetic one). Returns (model, optimizer, batch, cfg)."""
+    from .data import get_data
+    from .data.synth import make_synth_dataset
+    from .models.selector import (
+        build_model,
+        build_srl_model,
+        init_model_variables,
+    )
+    from .train.learner import batch_to_device
+    from .utils.config import get_cfg_with_overrides
+
+    dev = resolve_device(device)
+    paths = make_synth_dataset(root / "data", n_train=max(bs, 8), n_valid=5,
+                               seed=0)
+    cfg = get_cfg_with_overrides("bench", **{
+        **paths, **(extra if extra is not None else TINY_TX),
+        "task_type": task, "mdl.mdl_name": mdl_name, "train.bs": bs,
+        "train.bsv": bs, "train.nw": 0, "train.nwv": 0,
+        "misc.tmp_path": str(root / "tmp"), **(overrides or {}),
+        "train.dtype": compute_dtype(dev, overrides)})
+    data = get_data(cfg)
+    comm = data.train_dl.dataset.comm
+    if vocab:
+        model = build_srl_model(cfg, vocab, comm.gpt2_hf_tok.pad_token_id)
+    else:
+        model = build_model(cfg, comm)
+    init_model_variables(model, seed)
+    model.to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.99),
+                           eps=1e-8)
+    batch = batch_to_device(next(iter(data.train_dl)), dev)
+    return model, opt, batch, cfg
+
+
+def train_step_fn(model, opt, batch, gen: torch.Generator):
+    """One forward with dropout drawn from ``gen``, backward and Adam
+    update; returns the loss on the device."""
+    from .models.common import dropout_generator
+
+    def step():
+        with dropout_generator(gen):
+            loss = model(batch)["loss"]
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss
+
+    return step
+
+
+def profile_step(step, dev: torch.device):
+    """(the kernels of one ``step`` under ``torch.profiler``, by name; the
+    wall seconds of the same step unprofiled), on a GPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(dev)
+    return kernel_rows(prof), wall
+
+
+def device_busy(step, dev: torch.device) -> Optional[float]:
+    """Share of one step's wall time that the card spends in kernels
+    (``profile_step``). None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    rows, wall = profile_step(step, dev)
+    return round(sum(e.self_device_time_total for e in rows) / 1e6 / wall, 4)
+
+
+def bench_lang_train(task: str = "vb_arg", mdl: str = "sfpret_txe_txd_vbarg",
+                     bs: int = 32, iters: int = 10,
+                     extra: Optional[Dict] = None,
+                     name: str = "srl_train_throughput",
+                     vocab: Optional[int] = None, device="cuda",
+                     overrides: Optional[Dict] = None) -> Dict:
+    """Train-step throughput of a language-side model (the JAX bench's
+    ``bench_srl_train``): forward with dropout on, backward and
+    Adam(0.9, 0.99) on device tensors, ``bs`` videos a step. FLOPs by
+    ``FlopCounterMode`` over one step; bytes the least a step must move
+    (the batch read once; per parameter the weight read, its gradient
+    written, then read with the two Adam moments read and written and the
+    weight written, 4 bytes each); peak memory over the timed steps; the
+    device-busy share of one profiled step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    dev = resolve_device(device)
+    with tempfile.TemporaryDirectory(prefix="bench_train_") as tmp:
+        model, opt, batch, cfg = make_lang_train(
+            task, mdl, bs, dev, Path(tmp), extra, overrides, vocab)
+    step = train_step_fn(model, opt, batch,
+                         torch.Generator(device=dev).manual_seed(7))
+    with FlopCounterMode(display=False) as counter:
+        loss = step()
+    flops = float(counter.get_total_flops())
+    assert bool(torch.isfinite(loss)), float(loss)
+    n_params = sum(p.numel() for p in model.parameters())
+    moved = float(sum(v.numel() * v.element_size() for v in batch.values())
+                  + 4 * n_params * 8)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ms = float(np.median(call_ms(step, iters, dev)))
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else None)
+    busy = device_busy(step, dev)
+    n_vocab = (model.dec_cfg.vocab_size if task == "vb_arg"
+               else model.rob_cfg.vocab_size)
+    if vocab:
+        name += f"_v{vocab}"
+    return {
+        "metric": name,
+        "value": round(bs * 1e3 / ms, 2),
+        "unit": "videos/sec/chip" if dev.type == "cuda" else "videos/sec/cpu",
+        "device": device_name(dev),
+        "bs": bs,
+        "mdl": mdl,
+        "vocab": n_vocab,
+        "dtype": cfg.train.dtype,
+        "ms_per_step": round(ms, 3),
+        "flops_per_step": flops,
+        "peak_gib": None if peak is None else round(peak, 3),
+        "device_busy": busy,
+        **roofline(moved, flops, ms / 1e3, dev),
+    }
+
+
+def bench_srl_train(bs: int = 32, iters: int = 10, real_dims: bool = False,
+                    vocab: Optional[int] = None, device="cuda",
+                    overrides: Optional[Dict] = None) -> Dict:
+    """``srl`` (narrow dims, 32 videos) and ``srl_real`` (the reference's
+    3+3 layers at d 1024, 16 videos): ``sfpret_txe_txd_vbarg``."""
+    return bench_lang_train(
+        "vb_arg", "sfpret_txe_txd_vbarg", bs, iters,
+        REAL_TX if real_dims else None,
+        "srl_train_throughput_d1024" if real_dims else "srl_train_throughput",
+        vocab, device, overrides)
+
+
+def bench_evrel_train(bs: int = 8, iters: int = 10, device="cuda",
+                      overrides: Optional[Dict] = None) -> Dict:
+    """``evrel_real``: ``rob_evrel`` at the config's roberta-base dims."""
+    return bench_lang_train("evrel", "rob_evrel", bs, iters, {},
+                            "evrel_train_throughput_robbase", None, device,
+                            overrides)
+
+
 def seg_schedule(budget_steps: int, seg_min: int):
     """Segmented-decode schedule as [(n_steps, cache_len)]: the cache starts
     at ``seg_min`` positions and doubles between segments
@@ -482,6 +647,9 @@ def run_all(device="cuda", overrides: Optional[Dict] = None) -> List[Dict]:
     """Every ported mode, one JSON line each as it completes."""
     modes = [
         (bench_slowfast_featext, {}),
+        (bench_srl_train, {}),
+        (bench_srl_train, {"real_dims": True, "bs": 16}),
+        (bench_evrel_train, {}),
         (bench_srl_decode, {"real_dims": True}),
         (bench_srl_decode, {"real_dims": True, "beam": 5}),
     ]
@@ -499,7 +667,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
     argv = list(sys.argv[1:] if argv is None else argv)
     which = argv[0] if argv and not argv[0].startswith("--") else "all"
     sizes = [int(a) for a in argv[1:] if not a.startswith("--")]
-    flags = {"device": "cuda"}
+    flags = {"device": "cuda", "vocab": ""}
     overrides: Dict[str, str] = {}
     batch = False
     for a in argv:
@@ -510,11 +678,6 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
             (flags if key in flags else overrides)[key] = val
         elif a.startswith("--"):
             raise SystemExit(f"expected --key=value or --batch, got {a!r}")
-    if which in TRAINING_MODES:
-        raise NotImplementedError(
-            f"bench mode {which!r} measures training, which is not ported "
-            "yet: srl / srl_real come with vb_arg training, evrel_real with "
-            "evrel (ROADMAP.md, Queue 1)")
     kw = dict(device=flags["device"], overrides=overrides)
     if which == "all":
         return run_all(**kw)
@@ -524,6 +687,15 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         kw.update(zip(("bs", "iters"), sizes))
         res = bench_srl_decode(beam=5 if "5" in which else 1,
                                real_dims=which.endswith("_real"), **kw)
+    elif which in ("srl", "srl_real"):
+        kw.update(zip(("bs", "iters"), sizes))
+        if which == "srl_real":
+            kw.setdefault("bs", 16)
+        res = bench_srl_train(real_dims=which == "srl_real",
+                              vocab=int(flags["vocab"] or 0) or None, **kw)
+    elif which == "evrel_real":
+        kw.update(zip(("bs", "iters"), sizes))
+        res = bench_evrel_train(**kw)
     elif which in ("vbtrain", "vbtrain16"):
         kw.update(zip(("videos", "iters"), sizes))
         res = bench_vb_train(accum=2 if which == "vbtrain16" else 1, **kw)

@@ -17,7 +17,12 @@ so the map is a rename plus a transpose:
 ``vidsitu_tpu``'s ``VbVideoModel.init`` produces, or that
 ``vidsitu_tpu.convert.slowfast_torch.convert_sfbase_checkpoint`` returns
 for a PySlowFast checkpoint, so both packages load a checkpoint the same
-way.
+way. The language models take the same map: RoBERTa's embeddings and
+DenseGeneral attention, the evrel MLPs, the LSTM cells' per-gate kernels
+(``fwd_l0/ii/kernel``) and the rel-transformer's bias-free projections.
+
+``state_dict_to_flax`` is the inverse, a test aid: it hands weights fitted
+in the port to the JAX package. Nothing on a main path calls it.
 """
 
 from __future__ import annotations
@@ -84,6 +89,54 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> None:
     """Load flax variables into ``module`` with ``strict=True``: every
     parameter and statistic must be present, and nothing else."""
     module.load_state_dict(flax_to_state_dict(variables), strict=True)
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor], module: nn.Module
+                       ) -> Dict[str, Any]:
+    """The port's ``state_dict`` -> a flax ``{'params', 'batch_stats'}``
+    numpy tree (float32), the inverse of :func:`flax_to_state_dict`.
+    ``module`` tells the layouts apart: embeddings, attention projections
+    (``n_heads`` of their parent, DenseGeneral kernels (D, H, Dh) and (H,
+    Dh, D)), conv and dense kernels, scales."""
+    modules = dict(module.named_modules())
+    tree: Dict[str, Any] = {}
+
+    def put(coll: str, mod, name: str, value: np.ndarray):
+        d = tree.setdefault(coll, {})
+        for m in mod:
+            d = d.setdefault(m, {})
+        d[name] = value
+
+    for key, t in sd.items():
+        *mod, name = key.split(".")
+        arr = t.detach().cpu().to(torch.float32).numpy()
+        if name == "num_batches_tracked":
+            continue
+        heads = None
+        if mod and mod[-1] in _QKV + ("out_proj",):
+            heads = getattr(modules[".".join(mod[:-1])], "n_heads", None)
+        if name in ("running_mean", "running_var"):
+            put("batch_stats", mod, name[len("running_"):], arr)
+        elif isinstance(modules[".".join(mod)], nn.Embedding):
+            put("params", mod, "embedding", arr)
+        elif name == "weight" and arr.ndim == 5:
+            put("params", mod, "kernel", arr.transpose(2, 3, 4, 1, 0))
+        elif name == "weight" and arr.ndim == 2:
+            if heads and mod[-1] == "out_proj":
+                w = arr.T.reshape(heads, -1, arr.shape[0])
+            elif heads:
+                w = arr.T.reshape(arr.shape[1], heads, -1)
+            else:
+                w = arr.T
+            put("params", mod, "kernel", w)
+        elif name == "weight":
+            put("params", mod, "scale", arr)
+        elif name == "bias":
+            put("params", mod, "bias", arr.reshape(heads, -1)
+                if heads and mod[-1] in _QKV else arr)
+        else:
+            raise ValueError(f"no flax counterpart for {key}")
+    return tree
 
 
 def seeded_variables(module: nn.Module, seed: int) -> Dict[str, Any]:

@@ -1,6 +1,7 @@
 """In-loop evaluators (port of vidsitu_tpu/evaluation/evaluators.py;
-reference: evl_vsitu.py): ``EvalB`` for verb prediction (:276) and
-``EvalB_Gen`` for SRL generation (:401).
+reference: evl_vsitu.py): ``EvalB`` for verb prediction (:276),
+``EvalB_Acc`` for event relations (:327) and ``EvalB_Gen`` for SRL
+generation (:401).
 
 One process: pad each batch to the eval batch size, run the model, decode
 its output into leaderboard entries, dedupe by ``ann_idx``, write
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ..utils.io import write_pickle
-from .evl_fns import EvalFnCap, EvlFn_Vb
+from .evl_fns import EvalFnCap, EvlFn_EvRel, EvlFn_Vb
 
 
 def pad_batch_to(batch: Dict[str, np.ndarray], size: int) -> Dict[str, np.ndarray]:
@@ -70,7 +71,7 @@ class EvalB_Gen:
         if world_size != 1:
             raise NotImplementedError(
                 "EvalB_Gen over several processes is not ported yet "
-                "(ROADMAP.md, Queue 1 item 4)")
+                "(ROADMAP.md, Queue 1 item 5)")
         self.cfg = cfg
         self.comm = comm
         self.generate_fn = generate_fn
@@ -190,4 +191,93 @@ class EvalB:
         out_acc = self.evl_met.simple_acc(str(fname),
                                           split_type=self.split_type)
         return ({"loss": 0.0},
+                {k: float(out_acc[k]) for k in self.met_keys if k in out_acc})
+
+
+class EvalB_Acc:
+    """Event relations (evl_vsitu.py:217-261): the model's eval-mode logits
+    (B, 4, N, 5), softmax in float64, the top-1 relation and its
+    probability per pair and annotator, the pickle, and
+    ``EvlFn_EvRel.simple_acc_evrel``. The validation loss is the masked
+    cross-entropy recomputed on the host in float64 from the same logits,
+    over the real rows of a padded final batch only, weighted by each
+    batch's real rows (evaluators.py:349-360). ``batch_seconds`` holds each
+    batch's wall time, host batch to logits on the host."""
+
+    met_keys = ["Macro_Top_1", "Top_1"]
+
+    def __init__(self, cfg, comm, model, device, split_type: str = "valid",
+                 world_size: int = 1):
+        if world_size != 1:
+            raise NotImplementedError(
+                "EvalB_Acc over several processes is not ported yet "
+                "(ROADMAP.md, Queue 1 item 5)")
+        self.cfg = cfg
+        self.comm = comm
+        self.model = model
+        self.device = torch.device(device)
+        self.split_type = split_type
+        self.evl_met = EvlFn_EvRel(cfg, comm, self.met_keys)
+        self.batch_seconds: List[float] = []
+
+    def run_model(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
+        from ..train.learner import batch_to_device
+
+        t0 = time.perf_counter()
+        self.model.eval()
+        with torch.inference_mode():
+            out = self.model.logits(batch_to_device(batch, self.device))
+            logits = out.float().cpu().numpy()
+        self.batch_seconds.append(time.perf_counter() - t0)
+        return logits
+
+    @staticmethod
+    def loss_from_outputs(logits: np.ndarray, labels: np.ndarray,
+                          n_real: int) -> float:
+        """Masked cross-entropy (labels != -1) of the first ``n_real`` rows,
+        in float64."""
+        lo = np.asarray(logits)[:n_real].astype(np.float64)
+        lo = lo.reshape(-1, lo.shape[-1])
+        lab = np.asarray(labels)[:n_real].reshape(-1)
+        mask = lab != -1
+        lo = lo - lo.max(-1, keepdims=True)
+        lse = np.log(np.exp(lo).sum(-1))
+        ce = lse - lo[np.arange(lo.shape[0]), np.where(mask, lab, 0)]
+        return float((ce * mask).sum() / max(mask.sum(), 1.0))
+
+    def decode_batch(self, mdl_out: np.ndarray,
+                     ann_lst: np.ndarray) -> List[Dict]:
+        opp = self.comm.evrel_dct_opp
+        x = mdl_out.astype(np.float64)
+        probs = np.exp(x - x.max(-1, keepdims=True))
+        probs = probs / probs.sum(-1, keepdims=True)
+        top1 = probs.argmax(-1)  # (B, 4, N)
+        out = []
+        for bix in range(mdl_out.shape[0]):
+            out.append({
+                "pred_evrels_ev": [[opp[int(i)] for i in top1[bix, ev]]
+                                   for ev in range(4)],
+                "pred_scores_ev": [
+                    [float(probs[bix, ev, n, top1[bix, ev, n]])
+                     for n in range(top1.shape[2])] for ev in range(4)],
+                "ann_idx": int(ann_lst[bix])})
+        return out
+
+    def __call__(self, dl, dl_name: str, pred_path):
+        results: List[Dict] = []
+        losses: List[float] = []
+        nums: List[int] = []
+        for batch in dl:
+            n_real = next(iter(batch.values())).shape[0]
+            padded = pad_batch_to(batch, dl.batch_size)
+            out = self.run_model(padded)
+            results += self.decode_batch(out, padded["vseg_idx"])
+            losses.append(self.loss_from_outputs(out, padded["evrel_labs"],
+                                                 n_real))
+            nums.append(n_real)
+        fname = _write_unique(results, pred_path, dl_name)
+        out_acc = self.evl_met.simple_acc_evrel(str(fname),
+                                                split_type=self.split_type)
+        val_loss = float(np.average(losses, weights=nums)) if losses else 0.0
+        return ({"loss": val_loss},
                 {k: float(out_acc[k]) for k in self.met_keys if k in out_acc})

@@ -2,17 +2,22 @@
 --key=val ...`` (the surface of the JAX package's main.py: a run id plus
 dotted-key config overrides; reference main_dist.py:132-172).
 
-One process, one device. Verb prediction trains and validates::
+One process, one device. The three tasks train and validate::
 
     python -m vidsitu_tpu_torch.main vb_run --task_type=vb \\
         --mdl.mdl_name=sf_base --mdl.sf_mdl_name=i3d_r50_nl_8x8 --device=cuda
+    python -m vidsitu_tpu_torch.main srl_run --task_type=vb_arg \\
+        --mdl.mdl_name=sfpret_txe_txd_vbarg --device=cuda
+    python -m vidsitu_tpu_torch.main evrel_run --task_type=evrel \\
+        --mdl.mdl_name=sfpret_evrel --device=cuda
 
-``train.epochs`` epochs, each validated with ``EvalB``; the best model goes
-to ``{misc.tmp_path}/models/{uid}.ckpt`` and ``--train.resume=True`` with
-the same uid resumes it (optimizer included with ``train.load_opt``). Then
-the best model is validated once more (``run_final_val``). ``--only_val``,
-``--only_test`` and ``--overfit_batch`` as in the JAX package. SRL decoding
-evaluates ``vb_arg``::
+``train.epochs`` epochs, each validated (``EvalB``, ``EvalB_Gen`` decoding
+with ``gen.*``, ``EvalB_Acc``); the best model goes to
+``{misc.tmp_path}/models/{uid}.ckpt`` and ``--train.resume=True`` with the
+same uid resumes it (optimizer included with ``train.load_opt``, the
+dropout generator's state always). Then the best model is validated once
+more (``run_final_val``). ``--only_val``, ``--only_test`` and
+``--overfit_batch`` as in the JAX package; SRL decoding alone::
 
     python -m vidsitu_tpu_torch.main srl_eval --task_type=vb_arg \\
         --only_val=True --device=cuda --weights=srl_state_dict.pt
@@ -21,13 +26,12 @@ Port-only flags, given in the same ``--key=value`` form:
 
   * ``--device``: torch device (default ``cuda``; raises when no GPU is
     visible, never falls back to the CPU);
-  * ``--weights``: a torch file holding the port model's ``state_dict``;
+  * ``--weights``: a torch file holding the port model's ``state_dict``
+    (evaluation, or the starting point of a fit);
   * ``--allow_random_weights=True``: seeded random weights from
-    ``train.seed`` instead, for SRL decoding (smoke tests only).
+    ``train.seed`` instead, for SRL decoding alone (smoke tests only).
 
 Predictions go to ``{misc.tmp_path}/predictions/{uid}/{dl_name}_0.pkl``.
-SRL training and evrel raise ``NotImplementedError`` until their slices
-are ported.
 """
 
 from __future__ import annotations

@@ -1,7 +1,13 @@
-"""Shared model building blocks (port of vidsitu_tpu/models/common.py)."""
+"""Shared model building blocks (port of vidsitu_tpu/models/common.py),
+plus what the flax modules get from flax itself: dropout drawn from an
+explicit generator (flax's ``rngs={"dropout": key}``) and flax's initial
+values (:func:`init_like_flax`)."""
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -35,6 +41,53 @@ class MLP(nn.Module):
             if i < self.n_layers - 1:
                 x = F.relu(x)
         return x
+
+
+_DROPOUT = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_generator(gen: Optional[torch.Generator]):
+    """Draw every dropout mask inside the block from ``gen`` (a
+    ``torch.Generator`` on the device of the activations), as flax's
+    ``apply(..., rngs={"dropout": key})`` does for one step. Blocks nest;
+    the innermost generator is used."""
+    prev = getattr(_DROPOUT, "gen", None)
+    _DROPOUT.gen = gen
+    try:
+        yield gen
+    finally:
+        _DROPOUT.gen = prev
+
+
+@contextlib.contextmanager
+def deterministic():
+    """No dropout inside the block, whatever the modules' mode (the JAX
+    package's ``deterministic=True`` of its decode entry points)."""
+    prev = getattr(_DROPOUT, "off", False)
+    _DROPOUT.off = True
+    try:
+        yield
+    finally:
+        _DROPOUT.off = prev
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """The JAX package's ``_dropout`` (models/transformer.py:254): identity
+    when ``rate`` is 0, the module is in ``eval()`` or inside
+    :func:`deterministic`, else ``x * keep / (1 - rate)`` with ``keep``
+    drawn from the generator of the innermost :func:`dropout_generator`
+    block. Never the global random state: a training forward outside such a
+    block raises."""
+    if rate <= 0.0 or not training or getattr(_DROPOUT, "off", False):
+        return x
+    gen = getattr(_DROPOUT, "gen", None)
+    if gen is None:
+        raise RuntimeError(
+            "dropout in training mode draws from an explicit generator: run "
+            "the forward inside models.common.dropout_generator(gen)")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return x * keep / (1.0 - rate)
 
 
 def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -71,3 +124,65 @@ def make_padding_mask(pad_mask: Optional[torch.Tensor],
     if pad_mask is None:
         return None
     return torch.where(pad_mask[:, None, None, :] > 0, 0.0, NEG_INF).to(dtype)
+
+
+def embedding(n: int, d: int, init_std: Optional[float] = None) -> nn.Embedding:
+    """``nn.Embedding`` tagged with its flax ``embedding_init`` for
+    :func:`init_like_flax`: a plain normal of ``init_std``, or flax's
+    default (variance scaling over D) when None."""
+    emb = nn.Embedding(n, d)
+    emb.init_std = init_std
+    return emb
+
+
+def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
+    """flax's ``variance_scaling(..., 'normal')``: a normal of ``std`` /
+    0.8796 cut at two of its standard deviations."""
+    std = std / 0.87962566103423978
+    w = torch.empty(shape, dtype=torch.float32)
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
+    """flax's default initial values, drawn from ``seed`` (torch's generator,
+    so the values differ from the JAX package's; the distributions match):
+    conv and dense kernels ``lecun_normal`` (a normal of std sqrt(1 /
+    fan_in) / 0.8796, cut at two of its standard deviations), or orthogonal
+    where a ``Linear`` is tagged ``flax_init = "orthogonal"`` (an LSTM's
+    recurrent kernels); biases zero; embeddings by their ``init_std`` tag
+    (see :func:`embedding`); LayerNorm scale one and bias zero; BatchNorm
+    scale one (zero where flax's ``scale_init`` is zeros: the final BN of
+    each bottleneck under ``zero_init_final_bn``, and the non-local BN),
+    shift zero, running mean 0 and variance 1."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in model.modules():
+        if isinstance(m, (nn.Conv3d, nn.Linear)):
+            if getattr(m, "flax_init", None) == "orthogonal":
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                nn.init.orthogonal_(w, generator=gen)
+            else:
+                w = _trunc_normal(m.weight.shape,
+                                  math.sqrt(1.0 / math.prod(m.weight.shape[1:])),
+                                  gen)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            std = getattr(m, "init_std", None)
+            if std is None:
+                w = _trunc_normal(m.weight.shape,
+                                  math.sqrt(1.0 / m.weight.shape[1]), gen)
+            else:
+                w = torch.randn(m.weight.shape, generator=gen) * std
+            m.weight.copy_(w)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm3d):
+            m.weight.fill_(0.0 if getattr(m, "zero_init", False) else 1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+            m.num_batches_tracked.zero_()
+    return model

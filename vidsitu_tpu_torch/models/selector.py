@@ -19,40 +19,51 @@ def compute_dtypes(cfg):
 
 
 def build_model(cfg, comm):
-    """The model for ``cfg``: the ``vb`` verb model or a ``vb_arg`` model.
-    Parameters are made in float32, the products run in ``train.dtype``."""
-    from .srl_models import SRL_MDL_NAMES, FEAT_MDLS, SRLModel, get_head_dim
-    from .transformer import TxConfig
-
-    task, mdl_name = cfg.task_type, cfg.mdl.mdl_name
+    """The model for ``cfg`` (selector.py:26-73): the ``vb`` verb model, a
+    ``vb_arg`` model or an ``evrel`` model. Parameters are made in float32,
+    the products run in ``train.dtype``."""
+    task = cfg.task_type
     if task == "vb":
         from .vb_models import build_vb_model
 
         return build_vb_model(cfg, comm)
+    if task == "evrel":
+        from .evrel_models import build_evrel_model
+
+        return build_evrel_model(cfg, comm)
     if task != "vb_arg":
-        raise NotImplementedError(
-            f"task_type {task!r}: build_model builds the vb and vb_arg models; "
-            "evrel comes after the SRL training slice (ROADMAP.md, Queue 1)")
+        raise NotImplementedError(task)
+    tok = comm.gpt2_hf_tok
+    return build_srl_model(cfg, len(tok), tok.pad_token_id)
+
+
+def build_srl_model(cfg, vocab_size: int, pad_id: int):
+    """The ``vb_arg`` model ``mdl.mdl_name`` over a vocabulary of
+    ``vocab_size`` tokens (the tokenizer's, or a larger one to time the
+    output layer at GPT-2's size)."""
+    from .srl_models import SRL_MDL_NAMES, FEAT_MDLS, SRLModel, get_head_dim
+    from .transformer import TxConfig
+
+    mdl_name = cfg.mdl.mdl_name
     if mdl_name not in SRL_MDL_NAMES:
         raise ValueError(f"unknown vb_arg model {mdl_name}")
     dtype, _ = compute_dtypes(cfg)
-    tok = comm.gpt2_hf_tok
     if mdl_name == "new_gpt2_only":
         # GPT-2 architecture (pre-norm, gelu, learned positions, tied in/out
         # embeddings), dims from cfg.gpt2_mdl
         g = cfg.gpt2_mdl
         dec_cfg = TxConfig(
-            vocab_size=len(tok), d_model=g.d_model, ffn_dim=4 * g.d_model,
+            vocab_size=vocab_size, d_model=g.d_model, ffn_dim=4 * g.d_model,
             n_layers=g.n_layers, n_heads=g.n_heads, dropout=0.1,
             max_len=g.max_pos, normalize_before=True, scale_embed=False,
             learned_pos=True, share_in_out_embed=True,
-            pad_id=tok.pad_token_id, activation="gelu", final_ln=True,
+            pad_id=pad_id, activation="gelu", final_ln=True,
             dtype=dtype,
         )
     else:
-        dec_cfg = TxConfig.from_cfg(cfg.tx_dec, len(tok), tok.pad_token_id,
+        dec_cfg = TxConfig.from_cfg(cfg.tx_dec, vocab_size, pad_id,
                                     side="decoder", dtype=dtype)
-    enc_cfg = TxConfig.from_cfg(cfg.tx_dec, len(tok), tok.pad_token_id,
+    enc_cfg = TxConfig.from_cfg(cfg.tx_dec, vocab_size, pad_id,
                                 side="encoder", dtype=dtype)
     return SRLModel(
         mdl_name=mdl_name, dec_cfg=dec_cfg, enc_cfg=enc_cfg,
@@ -62,11 +73,11 @@ def build_model(cfg, comm):
 
 
 def init_model_variables(model, seed: int = 0):
-    """flax's default initial values for a verb model, drawn from ``seed``
-    (``video_backbone.init_like_flax``); returns the model. The JAX package
+    """flax's default initial values for any model of the port, drawn from
+    ``seed`` (``common.init_like_flax``); returns the model. The JAX package
     draws them with ``model.init`` from ``PRNGKey(seed)``: the values differ,
     the distributions and the zero-initialised scales match."""
-    from .video_backbone import init_like_flax
+    from .common import init_like_flax
 
     return init_like_flax(model, seed)
 

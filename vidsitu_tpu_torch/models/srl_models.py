@@ -10,7 +10,9 @@ One module covers the five variants of the reference model zoo
   * ``sfpret_txe_txd_vbarg`` — + transformer over the 5 event features
 
 The (B, 5 events) axis is folded into the batch, so all 5 events of a
-segment decode together.
+segment decode together. ``forward`` is the training forward: in
+``train()`` it drops out at the transformer's sites (models/transformer.py),
+drawing from the generator of ``common.dropout_generator``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from . import common
 from .common import MLP
 from .transformer import TransformerDecoder, TransformerEncoder, TxConfig
 
@@ -73,6 +76,8 @@ class SRLModel(nn.Module):
             raise ValueError(f"unknown vb_arg model {mdl_name}")
         self.mdl_name = mdl_name
         self.dec_cfg = dec_cfg
+        self.enc_cfg = enc_cfg
+        self.feat_dim = feat_dim
         self.tx_enc_type = tx_enc_type
         self.has_cross = mdl_name not in ("tx_only", "new_gpt2_only")
         self.decoder = TransformerDecoder(dec_cfg, has_cross=self.has_cross)
@@ -127,9 +132,10 @@ class SRLModel(nn.Module):
                                     self.dec_cfg.pad_id)
         return {"loss": loss}
 
-    # -- generation plumbing ------------------------------------------------
+    # -- generation plumbing (deterministic in either mode) -----------------
     def gen_encode(self, inp):
-        return self.encode(inp)
+        with common.deterministic():
+            return self.encode(inp)
 
     def gen_build_cache(self, batch: int, max_len: int, enc_out):
         return self.decoder.build_cache(batch, max_len, enc_out)

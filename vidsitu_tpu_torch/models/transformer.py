@@ -12,6 +12,13 @@ Pallas kernel, with its numerics (``transformer.py:132-141``): q divided by
 sqrt(Dh) in the compute dtype, the additive mask added to the logits,
 softmax in float32, the probabilities cast back.
 
+Dropout sits where the JAX package's ``_dropout`` does, at the same rates:
+the attention probabilities (``attn_dropout``), the FFN activation
+(``act_dropout``), each sub-block's output before its residual add and the
+embeddings (``dropout``). It is active in ``train()`` only and draws its
+masks from the generator of ``common.dropout_generator``; ``decode_step``
+is deterministic in either mode and draws nothing.
+
 The decode cache is head-major, ``(rows, H, L, Dh)``, where the JAX
 package's is ``(rows, L, H, Dh)``: attention then reads each row's keys
 and values as contiguous (L, Dh) matrices without a transposed copy of the
@@ -30,8 +37,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from . import common
 from .common import (
     NEG_INF,
+    embedding,
     linear,
     make_causal_mask,
     make_padding_mask,
@@ -90,15 +99,17 @@ class TxConfig:
 
 class LayerNorm(nn.LayerNorm):
     """flax ``LayerNorm(use_fast_variance=False)`` with a compute dtype:
-    statistics, scale and bias in float32, the result cast to ``dtype``."""
+    statistics, scale and bias in float32 (float64 for a float64 input),
+    the result cast to ``dtype``."""
 
     def __init__(self, d: int, eps: float, dtype: torch.dtype):
         super().__init__(d, eps=eps)
         self.out_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
+        stat = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.to(stat), self.normalized_shape,
+                            self.weight.to(stat), self.bias.to(stat),
                             self.eps).to(self.out_dtype)
 
 
@@ -116,9 +127,11 @@ class MultiHeadAttention(nn.Module):
     ``forward(q_in, kv_in, mask, cache=(k, v), cache_index=i)`` with T == 1
     writes this step's K/V at position ``i`` of the head-major cache."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype):
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout = dropout
         self.head_dim = d_model // n_heads
         self.dtype = dtype
         inner = n_heads * self.head_dim
@@ -152,7 +165,8 @@ class MultiHeadAttention(nn.Module):
                  mask: Optional[torch.Tensor]) -> torch.Tensor:
         if mask is not None:
             logits = logits + mask.to(logits.dtype)
-        return torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        return common.dropout(probs, self.dropout, self.training)
 
     def attend(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -217,7 +231,7 @@ class MultiHeadAttention(nn.Module):
 
 class FFN(nn.Module):
     def __init__(self, d_model: int, ffn_dim: int, dtype: torch.dtype,
-                 activation: str = "relu"):
+                 activation: str = "relu", dropout: float = 0.0):
         super().__init__()
         if activation not in ("relu", "gelu", "gelu_exact"):
             raise NotImplementedError(activation)
@@ -225,6 +239,7 @@ class FFN(nn.Module):
         self.fc2 = nn.Linear(ffn_dim, d_model)
         self.dtype = dtype
         self.activation = activation
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = linear(self.fc1, x, self.dtype)
@@ -234,6 +249,7 @@ class FFN(nn.Module):
             h = F.gelu(h, approximate="tanh")
         else:  # BERT/RoBERTa erf gelu
             h = F.gelu(h)
+        h = common.dropout(h, self.dropout, self.training)
         return linear(self.fc2, h, self.dtype)
 
 
@@ -241,16 +257,23 @@ class EncoderLayer(nn.Module):
     def __init__(self, c: TxConfig):
         super().__init__()
         self.normalize_before = c.normalize_before
-        self.self_attn = MultiHeadAttention(c.d_model, c.n_heads, c.dtype)
+        self.dropout = c.dropout
+        self.self_attn = MultiHeadAttention(c.d_model, c.n_heads, c.dtype,
+                                            c.attn_dropout)
         self.self_attn_ln = LayerNorm(c.d_model, c.ln_eps, c.dtype)
-        self.ffn = FFN(c.d_model, c.ffn_dim, c.dtype, c.activation)
+        self.ffn = FFN(c.d_model, c.ffn_dim, c.dtype, c.activation,
+                       c.act_dropout)
         self.final_ln = LayerNorm(c.d_model, c.ln_eps, c.dtype)
 
     def _sub(self, x, ln, fn):
-        """Residual sub-block, pre- or post-norm."""
+        """Residual sub-block, pre- or post-norm, its output dropped out
+        before the residual add."""
+        def block(y):
+            return common.dropout(fn(y), self.dropout, self.training)
+
         if self.normalize_before:
-            return x + fn(ln(x))
-        return ln(x + fn(x))
+            return x + block(ln(x))
+        return ln(x + block(x))
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -264,7 +287,8 @@ class DecoderLayer(EncoderLayer):
         super().__init__(c)
         self.has_cross = has_cross
         if has_cross:
-            self.cross_attn = MultiHeadAttention(c.d_model, c.n_heads, c.dtype)
+            self.cross_attn = MultiHeadAttention(c.d_model, c.n_heads, c.dtype,
+                                                 c.attn_dropout)
             self.cross_attn_ln = LayerNorm(c.d_model, c.ln_eps, c.dtype)
 
     def forward(self, x: torch.Tensor, self_mask=None,
@@ -294,9 +318,10 @@ class _Embeddings(nn.Module):
         super().__init__()
         self.cfg = c
         if with_tokens:
-            self.embed_tokens = nn.Embedding(c.vocab_size, c.d_model)
+            self.embed_tokens = embedding(c.vocab_size, c.d_model,
+                                          c.d_model ** -0.5)
         if c.learned_pos:
-            self.embed_positions = nn.Embedding(c.max_len, c.d_model)
+            self.embed_positions = embedding(c.max_len, c.d_model)
         else:
             self.register_buffer(
                 "pos_table",
@@ -353,6 +378,7 @@ class TransformerEncoder(_Embeddings):
             x = _scale(x, math.sqrt(c.d_model))
         if add_positions:
             x = x + self._pos(0, x.shape[1], x.device)[None]
+        x = common.dropout(x, c.dropout, self.training)
         attn_mask = make_padding_mask(pad_mask)
         for layer in self.layers:
             x = layer(x, attn_mask)
@@ -392,7 +418,8 @@ class TransformerDecoder(_Embeddings):
                 enc_out: Optional[torch.Tensor] = None,
                 enc_pad_mask: Optional[torch.Tensor] = None,
                 self_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self._embed(tokens)
+        x = common.dropout(self._embed(tokens), self.cfg.dropout,
+                           self.training)
         mask = make_causal_mask(tokens.shape[1], tokens.device)
         if self_pad_mask is not None:
             mask = mask + make_padding_mask(self_pad_mask)
@@ -429,7 +456,12 @@ class TransformerDecoder(_Embeddings):
                     ) -> Tuple[torch.Tensor, Cache]:
         """token (R, 1) at ``position`` -> (logits (R, 1, V), cache). The
         cache's self K/V are written in place; ``cache["anc"]``, when
-        present, selects ancestor slots (ancestry-mode beam decode)."""
+        present, selects ancestor slots (ancestry-mode beam decode).
+        Deterministic in either mode, as the JAX package's."""
+        with common.deterministic():
+            return self._decode_step(token, position, cache, enc_mask)
+
+    def _decode_step(self, token, position, cache, enc_mask):
         x = self._embed(token, position0=position)
         max_len = cache["layers"][0]["self_k"].shape[2]
         pos_ids = torch.arange(max_len, device=token.device)

@@ -15,7 +15,6 @@ SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
   * ``remat`` / ``remat_stages`` checkpoint the bottlenecks (and, for
     ``stem``, the stems) with ``torch.utils.checkpoint``; the recomputation
     in the backward does not update the running statistics a second time.
-  * :func:`init_like_flax` gives a built model flax's initial values.
   * Public tensors keep the JAX layout, (B, T, H, W, C) frames, and the
     non-local token order (t, h, w). Inside, activations are (B, C, T, H, W)
     tensors; the entry points hand them over as channels-last views, so a
@@ -31,7 +30,6 @@ SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
 from __future__ import annotations
 
 import contextlib
-import math
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -479,34 +477,6 @@ def backbone_out_dim(c: VideoCfg) -> int:
     if c.arch == "slowfast":
         return w + w // c.beta_inv
     return w
-
-
-@torch.no_grad()
-def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
-    """flax's default initial values, drawn from ``seed`` (torch's generator,
-    so the values differ from the JAX package's; the distributions match):
-    conv and dense kernels ``lecun_normal`` (a normal of std
-    sqrt(1 / fan_in) / 0.8796, cut at two of its standard deviations),
-    biases zero, BatchNorm scale one (zero where flax's ``scale_init`` is
-    zeros: the final BN of each bottleneck under ``zero_init_final_bn``, and
-    the non-local BN), shift zero, running mean 0 and variance 1."""
-    gen = torch.Generator().manual_seed(int(seed))
-    for m in model.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)):
-            fan_in = math.prod(m.weight.shape[1:])
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            w = torch.empty(m.weight.shape, dtype=torch.float32)
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
-            m.weight.copy_(w)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm3d):
-            m.weight.fill_(0.0 if getattr(m, "zero_init", False) else 1.0)
-            m.bias.zero_()
-            m.running_mean.zero_()
-            m.running_var.fill_(1.0)
-            m.num_batches_tracked.zero_()
-    return model
 
 
 def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:

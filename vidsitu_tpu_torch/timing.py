@@ -50,3 +50,11 @@ def call_ms(fn: Callable[[], object], reps: int, device) -> List[float]:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
+
+
+def kernel_rows(prof) -> list:
+    """The device kernels of a ``torch.profiler`` run, by name: its CUDA
+    rows without the user annotations (``Optimizer.step#Adam.step`` and the
+    like), whose device span covers kernels already counted."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]

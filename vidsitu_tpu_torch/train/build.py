@@ -1,10 +1,8 @@
 """cfg -> a ready Learner (port of vidsitu_tpu/train/build.py; reference:
 main_dist.py:94-129): data, model (initialised, pretrained weights,
 weights given by the caller), the task's evaluator and the Learner, on one
-process and one device.
-
-Ported: ``vb`` (training and evaluation) and ``vb_arg`` evaluation.
-``vb_arg`` training is Queue 1 item 3 of ROADMAP.md, ``evrel`` item 4.
+process and one device, for the three tasks: ``vb``, ``vb_arg`` and
+``evrel``, training and evaluation.
 """
 
 from __future__ import annotations
@@ -38,12 +36,13 @@ def is_training(cfg) -> bool:
 
 def build_learner(cfg, uid: str, device="cuda", weights: str = "",
                   allow_random: bool = False) -> Learner:
-    """The Learner that ``main.py`` runs for ``cfg``. ``vb``: the verb model
-    with flax's initial values from ``train.seed``, then
-    ``mdl.load_sf_pretrained``, then ``weights`` when given. ``vb_arg``
-    (evaluation only): ``weights``, or seeded random ones when allowed."""
+    """The Learner that ``main.py`` runs for ``cfg``. Training, and ``vb`` /
+    ``evrel`` evaluation: the model with flax's initial values from
+    ``train.seed``, then the pretrained weights the config names
+    (``load_pretrained_variables``), then ``weights`` when given. ``vb_arg``
+    evaluation alone: ``weights``, or seeded random ones when allowed."""
     from ..data import get_data
-    from ..evaluation.evaluators import EvalB, EvalB_Gen
+    from ..evaluation.evaluators import EvalB, EvalB_Acc, EvalB_Gen
     from ..extract import resolve_device
     from ..models.selector import (
         build_model,
@@ -53,33 +52,32 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
     from .pretrained import load_pretrained_variables
 
     task = cfg.task_type
-    if task == "vb_arg" and is_training(cfg):
-        raise NotImplementedError(
-            "vb_arg (SRL) training is not ported yet (ROADMAP.md, Queue 1 "
-            "item 3); pass --only_val=True or --only_test=True")
-    if task not in ("vb", "vb_arg"):
-        raise NotImplementedError(
-            f"task_type {task!r} is not ported yet (evrel: ROADMAP.md, "
-            "Queue 1 item 4)")
+    if task not in ("vb", "vb_arg", "evrel"):
+        raise NotImplementedError(f"task_type {task!r}")
     dev = resolve_device(device)
     data = get_data(cfg)
     comm = data.valid_dl.dataset.comm
     model = build_model(cfg, comm)
-    if task == "vb":
+    if task == "vb_arg" and not is_training(cfg):
+        load_weights(model, cfg, weights, allow_random)
+    else:
         init_model_variables(model, int(cfg.train.seed))
         load_pretrained_variables(cfg, model)
         if weights:
             load_weights(model, cfg, weights, False)
-        model.to(dev)
+    model.to(dev)
+    if task == "vb":
         if dev.type == "cuda":
             model.to(memory_format=torch.channels_last_3d)
         eval_fn = EvalB(cfg, comm, model, dev, split_type=(
             "valid" if not cfg.only_test else "test_verb"))
+    elif task == "evrel":
+        eval_fn = EvalB_Acc(cfg, comm, model, dev, split_type=(
+            "valid" if not cfg.only_test else "test_evrel"))
     else:
-        load_weights(model, cfg, weights, allow_random)
-        model.to(dev).eval()
         eval_fn = EvalB_Gen(
             cfg, comm, build_srl_generate_fn(cfg, comm, model), dev,
             split_type="valid" if not cfg.only_test else "test_srl")
+    model.train(is_training(cfg))
     return Learner(uid=uid, cfg=cfg, model=model, data=data, eval_fn=eval_fn,
                    device=dev)

@@ -5,7 +5,8 @@ one file per checkpoint, written to a temporary file and moved into place
 with ``os.replace`` (a crash mid-write never truncates the only resumable
 checkpoint), a torn or unreadable file loads as ``None``, and the same
 metadata payload (``num_it``, ``num_epoch``, ``cfgtxt``, ``best_met``,
-``scheduler_state_dict``, the generator state under ``rng``) beside
+``scheduler_state_dict``; the dropout generator's state under
+``dropout_rng``, where the JAX package keeps its key under ``rng``) beside
 ``model_state_dict`` (parameters and BatchNorm statistics) and
 ``optimizer_state_dict``. Written with ``torch.save`` of state dicts.
 

@@ -16,7 +16,12 @@ PyTorch:
   * the loss of a step is fetched to the host only after the next step was
     queued, so the device never waits on the host's read;
   * frames are folded (B, 5, ...) -> (B*5, ...) on the host, copied from
-    pinned memory without blocking.
+    pinned memory without blocking;
+  * dropout (SRL and evrel) draws its masks from ``dropout_gen``, a
+    generator on the training device seeded from ``train.seed``, whose
+    state goes into every checkpoint (the JAX package keeps its dropout key
+    there for the same reason): a resumed run continues the same masks;
+  * the model validates in ``eval()`` and returns to ``train()`` after.
 """
 
 from __future__ import annotations
@@ -105,9 +110,10 @@ class Learner:
         self._preempt_requested = False
         self._stale_preempt = None  # consumed preempt ckpt, deleted on save
         self.ckpt_backend = get_backend(cfg.train.ckpt_backend)
-        # the train step's random state: the vb model draws nothing, but a
-        # resumed run continues the same stream (the JAX package's rng)
-        self.rng = torch.Generator().manual_seed(int(cfg.train.seed))
+        # the dropout masks' random state, on the training device; the only
+        # random state of a step (the JAX package's rng)
+        self.dropout_gen = torch.Generator(device=self.device).manual_seed(
+            int(cfg.train.seed))
         frozen = make_freeze_mask(cfg, model)
         params = dict(model.named_parameters())
         self._frozen = [params[n] for n in frozen] if frozen else []
@@ -180,8 +186,11 @@ class Learner:
         """One forward and backward on a device batch; every
         ``train.grad_accum`` steps, one update with the mean of their
         gradients. Returns the loss, still on the device."""
+        from ..models.common import dropout_generator
+
         self.model.train()
-        loss = self.model(batch)["loss"]
+        with dropout_generator(self.dropout_gen):
+            loss = self.model(batch)["loss"]
         (loss / self._grad_accum).backward()
         self._accum_count += 1
         if self._accum_count == self._grad_accum:
@@ -279,10 +288,15 @@ class Learner:
         if db is None:
             db = {self.cfg.val_dl_name: self.data.valid_dl}
         out_loss, out_acc = {}, {}
-        for dl_name, dl in db.items():
-            loss, acc = self.eval_fn(dl, dl_name, self.predictions_dir)
-            out_loss.update(loss)
-            out_acc.update(acc)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            for dl_name, dl in db.items():
+                loss, acc = self.eval_fn(dl, dl_name, self.predictions_dir)
+                out_loss.update(loss)
+                out_acc.update(acc)
+        finally:
+            self.model.train(was_training)
         if write_to_file:
             keys = ["epochs"] + list(out_loss) + list(out_acc)
             vals = [str(self.num_epoch)] + [
@@ -391,7 +405,7 @@ class Learner:
             "best_met": self.best_met,
             "scheduler_state_dict": {"plateau_wait": self.plateau_wait,
                                      "lr": self._lr},
-            "rng": self.rng.get_state(),
+            "dropout_rng": self.dropout_gen.get_state(),
         }
         self.ckpt_backend.save(path, model_state, opt_state, meta)
         if self._stale_preempt is not None and path == self.model_file:
@@ -410,8 +424,8 @@ class Learner:
         self.num_it = meta.get("num_it", 0)
         self.num_epoch = meta.get("num_epoch", 0)
         self.best_met = meta.get("best_met", None)
-        if meta.get("rng") is not None:
-            self.rng.set_state(meta["rng"])
+        if meta.get("dropout_rng") is not None:
+            self.dropout_gen.set_state(meta["dropout_rng"])
         if load_opt and self.ckpt_backend.has_opt(loaded):
             sched = meta.get("scheduler_state_dict") or {}
             self.plateau_wait = int(sched.get("plateau_wait", 0))

@@ -6,9 +6,12 @@ reference: trn_utils.py:352-413).
     the port's copies of the converters and then ``flax_to_state_dict``,
     the same route as the JAX package's;
   * ``train.freeze_sfbase``: the backbone's gradients are zeroed before
-    each update (its BatchNorm statistics still move, as in JAX).
-
-The GPT-2 and RoBERTa branches come with SRL and evrel training.
+    each update (its BatchNorm statistics still move, as in JAX);
+  * ``new_gpt2_only`` with ``mdl.gpt2_mdl_path``: a GPT-2 checkpoint
+    through ``convert_gpt2`` replaces the whole decoder; ``evrel`` with
+    ``mdl.rob_mdl_path``: a RoBERTa checkpoint through ``convert_roberta``
+    replaces what it holds of ``rob_mdl`` (the heads keep their initial
+    values). An empty path keeps the initial values.
 """
 
 from __future__ import annotations
@@ -75,7 +78,56 @@ def load_pretrained_variables(cfg, model: nn.Module, logger=None) -> nn.Module:
                              f"{list(unexpected)[:5]}")
         if logger:
             logger.info(f"loaded SlowFast pretrained weights from {path}")
+    if cfg.task_type == "vb_arg" and cfg.mdl.mdl_name == "new_gpt2_only":
+        path = cfg.mdl.gpt2_mdl_path
+        if path:
+            from ..convert.hf_torch import convert_gpt2, load_torch_state_dict
+
+            dec = convert_gpt2(
+                load_torch_state_dict(_existing(path)),
+                n_layers=cfg.gpt2_mdl.n_layers, n_heads=cfg.gpt2_mdl.n_heads,
+                target_vocab=model.decoder.embed_tokens.weight.shape[0],
+                strict=True)
+            _load_subtree(model, "decoder", dec, path)
+            if logger:
+                logger.info(f"loaded GPT-2 pretrained weights from {path}")
+    if cfg.task_type == "evrel":
+        path = cfg.mdl.rob_mdl_path
+        if path:
+            from ..convert.hf_torch import convert_roberta, load_torch_state_dict
+
+            rob = convert_roberta(
+                load_torch_state_dict(_existing(path)),
+                n_layers=cfg.rob_mdl.n_layers, n_heads=cfg.rob_mdl.n_heads,
+                strict=True)
+            if not hasattr(model.rob_mdl, "pooler_dense"):
+                rob.pop("pooler_dense", None)  # rob_evrel has no pooler
+            _load_subtree(model, "rob_mdl", rob, path, whole=False)
+            if logger:
+                logger.info(f"loaded RoBERTa pretrained weights from {path}")
     return model
+
+
+def _existing(path: str) -> str:
+    if not Path(path).exists():
+        raise FileNotFoundError(f"pretrained weights missing: {path}")
+    return path
+
+
+def _load_subtree(model: nn.Module, name: str, params, path: str,
+                  whole: bool = True) -> None:
+    """Load a converted flax subtree into ``model.<name>``: every key it
+    holds must exist in the model; with ``whole`` it must also cover every
+    parameter under ``name``."""
+    from ..convert.from_flax import flax_to_state_dict
+
+    sd = flax_to_state_dict({"params": {name: params}})
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    stray = [k for k in missing if k.startswith(name + ".")] if whole else []
+    if stray or unexpected:
+        raise ValueError(f"pretrained checkpoint {path} does not fit "
+                         f"{name}: missing {stray[:5]}, unexpected "
+                         f"{list(unexpected)[:5]}")
 
 
 def make_freeze_mask(cfg, model: nn.Module) -> Optional[List[str]]:
