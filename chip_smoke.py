@@ -141,15 +141,38 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    check and timing for each at 8 videos;
 23. ``vidsitu_tpu_torch.bench`` ``srl``, ``srl_real`` at the synthetic
    vocabulary (427) and at GPT-2's (50,281), and ``evrel_real``, one JSON
-   line each.
+   line each;
+24. several processes, one rank: ``python -m torch.distributed.run
+   --standalone --nproc_per_node=1`` of this script in child mode
+   (``--dist-child``), which calls ``vidsitu_tpu_torch.main.main`` with
+   ``--dist_backend=nccl``: phase 17's fit (same data, size and width) for
+   one epoch and its validation through the several-process code path (the
+   process group, the gradient all-reduce); its first-step loss and its
+   epoch agree with phase 17's first (DP_BF16_RTOL, DP_METRIC_ATOL), 20
+   forward and 10 backward launches on the routed entries;
+25. two ranks on the one card (``--device=cuda:0 --dist_backend=gloo``:
+   NCCL refuses two ranks on one GPU), one torchrun each: the same fit with
+   the global batch split in two (BatchNorm statistics and the loss over
+   the global batch; then a float32 first step whose global loss equals one
+   process's within DP_LOSS_RTOL), SRL validation at full width
+   (``--only_val``, beam 5, the reorder route, 16 segments a rank as in
+   phase 8: rank 0's
+   merged ``valid_0.pkl`` equals phase 8's entry for entry, one row-gather
+   launch per decode step on each rank), and the I3D-NL R50 extraction
+   (``vidsitu_tpu_torch.extract.main``: phase 3's 8 files, each within
+   FEATURE_RTOL). Each rank sets the kernels' counts to 0 before its entry
+   point, reads them after it, and then holds each kernel of its path
+   against the plain version once at its own shapes.
 
-Phases 1-19 run as before, at the same depth and repeats.
+Phases 1-23 run as before, at the same depth and repeats. A child that
+fails, a launch past DP_TIMEOUT_S or a disagreement fails the smoke.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
 before the last line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import functools
 import json
 import math
@@ -216,6 +239,11 @@ BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 VB_BS = 4  # videos a train step of phase 17 (20 clips)
 NL_BLOCKS = 5  # i3d_r50_nl_8x8: s3 blocks 1, 3 and s4 blocks 1, 3, 5
 BWD_TPU = "vidsitu_tpu/ops/attention.py:121"  # jax.grad of _einsum_attention
+DP_RANKS = 2  # phase 25: ranks on the one card
+EVALB_KEYS = ("Per_Ev_Top_1", "Per_Ev_Top_5", "recall_macro_1_th_9")
+# phase 24 against phase 17: two of the 40 events a metric counts may flip
+# (the updates differ by rounding: the backward's sums run in other orders)
+DP_METRIC_ATOL = 0.05
 
 
 def log(*a):
@@ -609,7 +637,7 @@ def phase_srl_main(paths, root, feats_dir):
     log(f"[8 srl] batch of 16 segments (80 events, 400 beam rows), first "
         f"call: {sec:.3f} s, {sec * 1e3 / steps[0]:.3f} ms/step over "
         f"{steps[0]} steps, {80 / sec:.1f} events/s")
-    return launches, ev.generate_fn, cfg
+    return launches, ev.generate_fn, cfg, preds
 
 
 def phase_srl_profile(gen, batch):
@@ -1202,7 +1230,8 @@ def phase_vb_train_main(paths, root):
     assert bwd == A.bwd_kernel_entry(torch.bfloat16, 512) == A.WGMMA_BWD_ENTRY
     A.reset_launches()
     t0 = time.perf_counter()
-    res = port_main.main(vb_train_args(paths, root))
+    with recorded_step_losses() as step_losses:
+        res = port_main.main(vb_train_args(paths, root))
     wall = time.perf_counter() - t0
     launches = dict(A.LAUNCHES_BY_ENTRY)
     learner, cfg = res["learner"], res["cfg"]
@@ -1261,7 +1290,8 @@ def phase_vb_train_main(paths, root):
                                                           l2.num_it)
     assert opt_steps == 3 * steps, "optimizer state not restored"
     assert A.LAUNCHES_BY_ENTRY[bwd] == n_nl * steps
-    return launches, wall
+    return launches, wall, {"step_losses": step_losses, "epochs": recs,
+                            "fwd": fwd, "bwd": bwd}
 
 
 def nl_blocks(model):
@@ -1808,6 +1838,372 @@ def phase_bench_lang(dev):
     return out
 
 
+# -- several processes (phases 24-25) ---------------------------------------
+DP_TIMEOUT_S = 300  # one torchrun launch, its processes' start included
+DP_LOSS_RTOL = 1e-4  # 2 ranks against 1 process: the first step's loss, f32
+# bf16 products against another process's: cuDNN may take other algorithms
+# (the workspace it finds free differs), which round other bf16 outputs
+DP_BF16_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def recorded_step_losses():
+    """Every ``Learner.train_step``'s loss, as a float, in call order."""
+    from vidsitu_tpu_torch.train.learner import Learner
+
+    losses, step = [], Learner.train_step
+
+    def train_step(self, batch):
+        loss = step(self, batch)
+        losses.append(float(loss))
+        return loss
+
+    Learner.train_step = train_step
+    try:
+        yield losses
+    finally:
+        Learner.train_step = step
+
+
+def tracker_rows(cfg):
+    path = (Path(cfg.misc.tmp_path) / "tracking"
+            / f"{cfg.expm.exp_name}_{cfg.task_type}" / cfg.uid
+            / "metrics.jsonl")
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def torchrun(task, nproc, spec, root):
+    """``python -m torch.distributed.run`` of this script in child mode on
+    ``nproc`` ranks; every rank's result, in rank order. A failed rank or a
+    launch past DP_TIMEOUT_S raises (the launcher's process group is
+    killed). The children's output goes to ``root/{task}.log``."""
+    import os
+    import signal
+
+    out = Path(root) / f"dp_{task}"
+    out.mkdir(parents=True, exist_ok=True)
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps({**spec, "out": str(out)}))
+    logf = Path(root) / f"{task}.log"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(Path(__file__).resolve()),
+           "--dist-child", task, str(spec_path)]
+    t0 = time.perf_counter()
+    with open(logf, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=str(REPO), start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    text = logf.read_text(errors="replace")
+    if rc != 0:
+        log(text[-6000:])
+        raise RuntimeError(f"torchrun {task} on {nproc} ranks: rc {rc} "
+                           f"after {wall:.1f} s")
+    res = [json.loads((out / f"rank{r}.json").read_text())
+           for r in range(nproc)]
+    for r in res:
+        log(f"[dp {task}] rank {r['rank']}/{r['world']}: launches "
+            f"{r['launches']}, kernel vs plain {r['checks']}, wall in the "
+            f"rank {r['wall_s']:.1f} s")
+    log(f"[dp {task}] {nproc} rank(s): torchrun wall {wall:.1f} s")
+    return res, wall
+
+
+def child_fit(spec, dev):
+    """vb training through main.py; then, when asked, one float32 step of a
+    fresh Learner on this rank's first batch (the global loss)."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.data.loader import fold_frame_events
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.parallel.collectives import is_main_process
+    from vidsitu_tpu_torch.train.build import build_learner
+    from vidsitu_tpu_torch.train.learner import batch_to_device
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    with recorded_step_losses() as losses:
+        res = port_main.main(spec["argv"])
+    cfg = res["cfg"]
+    out = {"step_losses": losses,
+           "epochs": tracker_rows(cfg) if is_main_process() else None}
+    if spec.get("f32_step"):
+        fit_launches = dict(A.LAUNCHES_BY_ENTRY)
+        uid, overrides, _ = port_main.parse_cli(spec["argv"])
+        cfg32 = get_cfg_with_overrides(uid + "_f32", **{
+            **overrides, "train.dtype": "float32",
+            "misc.tmp_path": cfg.misc.tmp_path + "_f32"})
+        learner = build_learner(cfg32, uid + "_f32", dev)
+        learner.prepare_optimizer(float(cfg32.train.lr))
+        batch = next(iter(learner.data.train_dl))
+        out["f32_loss"] = float(learner.train_step(
+            batch_to_device(fold_frame_events(batch), dev)))
+        out["f32_launches"] = {k: v - fit_launches[k]
+                               for k, v in A.LAUNCHES_BY_ENTRY.items()}
+        A.LAUNCHES_BY_ENTRY.update(fit_launches)
+        del learner
+    return out
+
+
+def child_srl(spec, dev):
+    from vidsitu_tpu_torch import main as port_main
+
+    res = port_main.main(spec["argv"])
+    return {"steps": res["evaluator"].generate_fn.steps,
+            "results": res["results"]["valid"]}
+
+
+def child_extract(spec, dev):
+    from vidsitu_tpu_torch import extract
+
+    extract.main(spec["argv"])
+    return {}
+
+
+def child_checks(task, dev, rank):
+    """Each kernel of this task's path against its plain version once, at
+    this rank's shapes (bf16; launches not counted)."""
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    errs = {}
+    rng = np.random.default_rng(24 + rank)
+    if task in ("fit", "extract"):
+        # a train step's or an eval batch's clips on this rank: 5 a video;
+        # extraction: one dispatch of clip_batch clips
+        b = 5 * VB_BS // 2 if task == "fit" else 32
+        for name, (sq, sk, d) in (("s3", S3), ("s4", S4)):
+            q, k, v = seeded_qkv(rng, b, sq, sk, d, torch.bfloat16, dev)
+            scale = d ** -0.5
+            out, lse = A.fused_attention(q, k, v, "softmax", scale,
+                                         with_lse=True)
+            ref = A.attention_reference(q, k, v, "softmax", scale)
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= attn_limit(torch.bfloat16, ref), (name, err)
+            errs[f"{A.kernel_entry(torch.bfloat16, d)} {name} B={b}"] = err
+            if task == "fit":
+                do = seeded_qkv(rng, b, sq, sq, d, torch.bfloat16, dev)[0]
+                got = A.fused_attention_backward(q, k, v, out, do, lse,
+                                                 "softmax", scale)
+                want = A.attention_backward_reference(q, k, v, out, do,
+                                                      "softmax", scale)
+                e = 0.0
+                for g, r in zip(got, want):
+                    eg = (g.float() - r.float()).abs().max().item()
+                    assert eg <= grad_limit(torch.bfloat16, r), (name, eg)
+                    e = max(e, eg)
+                errs[f"{A.bwd_kernel_entry(torch.bfloat16, d)} {name} "
+                     f"B={b}"] = e
+    else:
+        gen = torch.Generator(device=dev).manual_seed(24 + rank)
+        leaves = cache_leaves(gen, SELF_LENS[-1], torch.bfloat16, dev)
+        idx = beam_rows(gen, dev)
+        out = B.beam_gather_rows(leaves, idx)
+        ref = B.beam_gather_rows_reference(leaves, idx)
+        assert all(torch.equal(o, r) for o, r in zip(out, ref))
+        errs[f"beam_gather_rows {EVENTS * BEAM} rows L={SELF_LENS[-1]}"] = 0.0
+    torch.cuda.synchronize()
+    return errs
+
+
+def dist_child(task, spec_path) -> int:
+    """One rank of a torchrun launch (phases 24-25): join the process
+    group, run ``task`` through the port's entry point with every kernel
+    count at 0, then check the task's kernels against their plain versions
+    at this rank's shapes; write the rank's JSON result."""
+    import os
+
+    sys.path.insert(0, str(REPO))
+    from vidsitu_tpu_torch.ops import _build
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.ops import beam_gather as B
+    from vidsitu_tpu_torch.parallel import collectives as C
+    from vidsitu_tpu_torch.parallel.mesh import init_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    spec = json.loads(Path(spec_path).read_text())
+    dev = init_distributed(spec["device"], spec["backend"])
+    rank, world = C.get_rank(), C.get_world_size()
+    for name in ("nonlocal_attn", "beam_gather"):  # built by the parent
+        assert _build.library_path(name).is_file(), name
+    A.reset_launches()
+    B.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = {"fit": child_fit, "srl": child_srl,
+           "extract": child_extract}[task](spec, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**{k: v for k, v in A.LAUNCHES_BY_ENTRY.items() if v},
+                "beam_gather_rows": B.LAUNCHES}
+    checks = child_checks(task, dev, rank)
+    out = {"task": task, "rank": rank, "world": world,
+           "local_rank": int(os.environ["LOCAL_RANK"]), "device": str(dev),
+           "backend": torch.distributed.get_backend(), "wall_s": wall,
+           "launches": launches, "checks": checks, **res}
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    assert not leaked, f"jax was imported: {leaked[:5]}"
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(out))
+    C.synchronize()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dp_fit_one_rank(paths, root, p17):
+    """Phase 24: the vb fit of phase 17 (one epoch and its validation, same
+    size, width and data) on one rank of a NCCL process group: the
+    several-process code path (gradient all-reduce, rank 0's metrics
+    broadcast, the evaluator's merge) with one rank. Its first step's loss
+    and its epoch agree with phase 17's first epoch."""
+    res, wall = torchrun("fit", 1, {
+        "device": "cuda", "backend": "nccl",
+        "argv": vb_train_args(paths, root, "--train.epochs=1",
+                              "--run_final_val=False",
+                              "--dist_backend=nccl")}, root)
+    (r,) = res
+    ep, ep17 = r["epochs"][0], p17["epochs"][0]
+    fwd = r["launches"].get(p17["fwd"], 0)
+    bwd = r["launches"].get(p17["bwd"], 0)
+    first, first17 = r["step_losses"][0], p17["step_losses"][0]
+    log(f"[24 dp] 1 rank (nccl, {r['device']}): first-step loss {first!r} "
+        f"(phase 17: {first17!r}), epoch 1 train loss {ep['trn_loss']!r} "
+        f"({ep17['trn_loss']!r}), metrics "
+        f"{ {k: ep[k] for k in EVALB_KEYS} } "
+        f"({ {k: ep17[k] for k in EVALB_KEYS} }); launches {fwd} forward, "
+        f"{bwd} backward")
+    assert r["backend"] == "nccl" and r["device"] == "cuda:0", r
+    assert abs(first - first17) <= DP_BF16_RTOL * abs(first17), (
+        first, first17)
+    assert abs(ep["trn_loss"] - ep17["trn_loss"]) <= (
+        DP_BF16_RTOL * abs(ep17["trn_loss"])), (ep, ep17)
+    assert all(abs(ep[k] - ep17[k]) <= DP_METRIC_ATOL for k in EVALB_KEYS)
+    steps, eval_batches = 2, -(-8 // VB_BS)
+    assert (fwd, bwd) == (NL_BLOCKS * (steps + eval_batches),
+                          NL_BLOCKS * steps), r["launches"]
+    return res, wall
+
+
+def f32_first_step_loss(paths, root):
+    """One process: the float32 loss of the first step of phase 25's fit
+    (the same first global batch, flax's initial values)."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.data.loader import fold_frame_events
+    from vidsitu_tpu_torch.train.build import build_learner
+    from vidsitu_tpu_torch.train.learner import batch_to_device
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    uid, overrides, _ = port_main.parse_cli(vb_train_args(paths, root))
+    cfg = get_cfg_with_overrides(uid, **{
+        **overrides, "train.dtype": "float32",
+        "misc.tmp_path": str(Path(root) / "tmp_f32")})
+    learner = build_learner(cfg, uid, "cuda")
+    learner.prepare_optimizer(float(cfg.train.lr))
+    batch = next(iter(learner.data.train_dl))
+    loss = float(learner.train_step(batch_to_device(
+        fold_frame_events(batch), learner.device)))
+    del learner
+    torch.cuda.empty_cache()
+    return loss
+
+
+def phase_dp_two_ranks(vb_paths, vb_root, main_paths, main_root, feats_dir,
+                       p17, srl_preds):
+    """Phase 25: two ranks on the one card (gloo on CUDA tensors; NCCL
+    refuses two ranks on one GPU), full width: the vb fit with the global
+    batch split in two (and a float32 first step against one process's),
+    SRL validation at beam 5 on the reorder route (rank 0's merged pickle
+    against phase 8's), and I3D-NL R50 extraction (the files against phase
+    3's). Every rank's launches of #1, #1b and #2, and each kernel against
+    its plain version at that rank's shapes."""
+    loss32 = f32_first_step_loss(vb_paths, vb_root)
+    gloo = {"device": "cuda:0", "backend": "gloo"}
+    dp = ("--device=cuda:0", "--dist_backend=gloo")
+    fit, fit_wall = torchrun("fit", DP_RANKS, {**gloo, "f32_step": True,
+                             "argv": vb_train_args(
+                                 vb_paths, vb_root, "--train.epochs=1",
+                                 "--run_final_val=False",
+                                 f"--misc.tmp_path={vb_root / 'tmp_dp2'}",
+                                 *dp)}, vb_root)
+    first = [r["step_losses"][0] for r in fit]
+    f32 = [r["f32_loss"] for r in fit]
+    ep = fit[0]["epochs"][0]
+    fwd = [r["launches"].get(p17["fwd"], 0) for r in fit]
+    bwd = [r["launches"].get(p17["bwd"], 0) for r in fit]
+    rel = abs(f32[0] - loss32) / abs(loss32)
+    rel16 = abs(first[0] - p17["step_losses"][0]) / abs(
+        p17["step_losses"][0])
+    log(f"[25 dp] vb fit on 2 ranks (gloo, cuda:0): float32 first-step loss "
+        f"{f32} against one process's {loss32!r} (relative {rel:.2e}, limit "
+        f"{DP_LOSS_RTOL:g}); bf16 first-step loss {first} against phase "
+        f"17's {p17['step_losses'][0]!r} (relative {rel16:.2e}); epoch 1 "
+        f"train loss {ep['trn_loss']!r}, metrics "
+        f"{ {k: ep[k] for k in EVALB_KEYS} }; launches by rank: forward "
+        f"{fwd}, backward {bwd}; float32 step "
+        f"{[r['f32_launches'] for r in fit]}")
+    steps, eval_batches = 2, -(-8 // VB_BS)
+    assert all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+               for r in fit), fit
+    assert f32[0] == f32[1] and first[0] == first[1], (f32, first)
+    assert rel <= DP_LOSS_RTOL, (f32, loss32)
+    assert rel16 <= 1e-2, (first, p17["step_losses"][0])
+    assert fwd == [NL_BLOCKS * (steps + eval_batches)] * DP_RANKS, fwd
+    assert bwd == [NL_BLOCKS * steps] * DP_RANKS, bwd
+    assert all(r["f32_launches"] == {V1_ENTRY: NL_BLOCKS,
+                                     BWD_V1_ENTRY: NL_BLOCKS, **{
+                                         k: 0 for k in r["f32_launches"]
+                                         if k not in (V1_ENTRY,
+                                                      BWD_V1_ENTRY)}}
+               for r in fit), [r["f32_launches"] for r in fit]
+
+    srl_tmp = main_root / "tmp_dp2"
+    srl, srl_wall = torchrun("srl", DP_RANKS, {**gloo, "argv": srl_args(
+        main_paths, main_root, feats_dir, "--only_val=True",
+        "--gen.beam_size=5", "--tpu.ancestry_beam=False",
+        f"--train.bsv={16 * DP_RANKS}", f"--misc.tmp_path={srl_tmp}", *dp)},
+        main_root)
+    with open(srl_tmp / "predictions" / "chip_smoke_srl" / "valid_0.pkl",
+              "rb") as f:
+        merged = pickle.load(f)
+    gathers = [r["launches"]["beam_gather_rows"] for r in srl]
+    steps = [sum(r["steps"]) for r in srl]
+    log(f"[25 dp] SRL validation on 2 ranks: {len(merged)} merged entries, "
+        f"equal to phase 8's: {merged == srl_preds}; metrics "
+        f"{srl[0]['results'][1]}; row-gather launches by rank {gathers}, "
+        f"decode steps {steps}")
+    assert merged == srl_preds, "merged pickle differs from phase 8's"
+    assert srl[0]["results"] == srl[1]["results"]
+    assert gathers == steps and all(n > 0 for n in gathers), (gathers, steps)
+
+    feats = main_root / "feats_dp2"
+    ext, ext_wall = torchrun("extract", DP_RANKS, {**gloo, "argv": [
+        *dp, "--allow_random_weights", "--split=valid",
+        f"--out_dir={feats}", "--batch_size=4", "--clip_batch=32",
+        "--num_threads=4", "--mdl.sf_mdl_name=i3d_r50_nl_8x8",
+        "--train.dtype=bfloat16", f"--misc.tmp_path={main_root / 'tmp_ex'}",
+        *[f"--{k}={v}" for k, v in main_paths.items()]]}, main_root)
+    one = sorted((main_root / "feats").glob("*_feats.npy"))
+    two = sorted(feats.glob("*_feats.npy"))
+    worst = 0.0
+    for a, b in zip(one, two):
+        x, y = np.load(a), np.load(b)
+        worst = max(worst, float(np.abs(x - y).max() / np.abs(x).max()))
+    ext_launches = [r["launches"].get(p17["fwd"], 0) for r in ext]
+    log(f"[25 dp] extraction on 2 ranks: {len(two)} files (phase 3: "
+        f"{len(one)}), largest difference {worst:.2e} of the feature scale "
+        f"(limit {FEATURE_RTOL:g}); attention launches by rank "
+        f"{ext_launches}")
+    assert [p.name for p in one] == [p.name for p in two] and len(two) == 8
+    assert worst <= FEATURE_RTOL, worst
+    assert ext_launches == [NL_BLOCKS] * DP_RANKS, ext_launches
+    return {"fit": fit, "srl": srl, "extract": ext,
+            "walls": {"fit": fit_wall, "srl": srl_wall, "extract": ext_wall}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1843,25 +2239,30 @@ def main() -> int:
 
     from vidsitu_tpu_torch.data.synth import make_synth_dataset
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        paths = make_synth_dataset(root / "data", n_train=2, n_valid=8,
-                                   n_test=1, with_frames=True, frame_hw=224)
-        log(f"[3 main] synthetic dataset (224 px JPEGs) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        cfg = smoke_cfg(paths, root, "i3d_r50_nl_8x8")
-        state_dict = seeded_state_dict(cfg)
-        launches, by_entry = phase_main_path(cfg, state_dict, root / "feats")
-        forward_ms = phase_paths_agree(cfg, state_dict, dev)
-        sf_model, sf_inp = phase_default_cfg(paths, root, dev)
-        # the SRL models read the feature width from the directory's name
-        feats_dir = root / "i3d_nl_smoke_feats"
-        feats_dir.symlink_to(root / "feats", target_is_directory=True)
-        gather_launches, gen, srl_cfg = phase_srl_main(paths, root, feats_dir)
-        phase_routes(gen, srl_cfg, dev)
-        phase_srl_profile(gen, device_batch(srl_cfg, dev))
-        phase_real_vocab(srl_cfg, dev)
+    # the data of phases 3-10 and 17 stay until phases 24-25 have used them
+    stack = contextlib.ExitStack()
+    tmp = stack.enter_context(
+        tempfile.TemporaryDirectory(prefix="chip_smoke_"))
+    root = Path(tmp)
+    t0 = time.perf_counter()
+    paths = make_synth_dataset(root / "data", n_train=2, n_valid=8,
+                               n_test=1, with_frames=True, frame_hw=224)
+    log(f"[3 main] synthetic dataset (224 px JPEGs) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = smoke_cfg(paths, root, "i3d_r50_nl_8x8")
+    state_dict = seeded_state_dict(cfg)
+    launches, by_entry = phase_main_path(cfg, state_dict, root / "feats")
+    forward_ms = phase_paths_agree(cfg, state_dict, dev)
+    sf_model, sf_inp = phase_default_cfg(paths, root, dev)
+    # the SRL models read the feature width from the directory's name
+    feats_dir = root / "i3d_nl_smoke_feats"
+    feats_dir.symlink_to(root / "feats", target_is_directory=True)
+    gather_launches, gen, srl_cfg, srl_preds = phase_srl_main(paths, root,
+                                                              feats_dir)
+    main_root, main_paths = root, paths
+    phase_routes(gen, srl_cfg, dev)
+    phase_srl_profile(gen, device_batch(srl_cfg, dev))
+    phase_real_vocab(srl_cfg, dev)
 
     # this slice's main path: the fused block on the model's own blocks,
     # then the measuring entry point; counts set to 0 just before
@@ -1883,15 +2284,17 @@ def main() -> int:
     assert all(n > 0 for n in slice_launches.values()), slice_launches
 
     bwd_err, bwd_rel_err, bwd_times = phase_backward_kernel(dev)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_vb_") as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        paths = make_synth_dataset(root / "data", n_train=2 * VB_BS,
-                                   n_valid=8, n_test=1, with_frames=True,
-                                   frame_hw=224, seed=17)
-        log(f"[17 train] synthetic dataset (224 px JPEGs) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        train_launches, train_wall = phase_vb_train_main(paths, root)
+    tmp = stack.enter_context(
+        tempfile.TemporaryDirectory(prefix="chip_smoke_vb_"))
+    root = Path(tmp)
+    t0 = time.perf_counter()
+    paths = make_synth_dataset(root / "data", n_train=2 * VB_BS,
+                               n_valid=8, n_test=1, with_frames=True,
+                               frame_hw=224, seed=17)
+    log(f"[17 train] synthetic dataset (224 px JPEGs) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    train_launches, train_wall, p17 = phase_vb_train_main(paths, root)
+    vb_root, vb_paths = root, paths
     step_res = phase_train_step(dev)
     bench_train = phase_bench_train(dev)
 
@@ -1908,6 +2311,14 @@ def main() -> int:
                    for mdl in ("rob_evrel", "sfpret_evrel")}
     bench_lang = phase_bench_lang(dev)
 
+    # several processes: each rank's counts set to 0 just before its entry
+    # point, read just after (dist_child)
+    torch.cuda.empty_cache()
+    with stack:
+        dp1, dp1_wall = phase_dp_fit_one_rank(vb_paths, vb_root / "dp1", p17)
+        dp2 = phase_dp_two_ranks(vb_paths, vb_root, main_paths, main_root,
+                                 feats_dir, p17, srl_preds)
+
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert not leaked, f"jax was imported: {leaked[:5]}"
@@ -1923,6 +2334,22 @@ def main() -> int:
     s3, s4 = times["s3"], times["s4"]
     fwd_entry = s3["entry"]
     bwd_entry = bwd_times["s3"]["entry"]
+
+    def by_rank(res, entry):
+        """Each rank's launches of ``entry`` and its kernel-vs-plain
+        errors, in rank order."""
+        return ([r["launches"].get(entry, 0) for r in res],
+                [max((e for k, e in r["checks"].items()
+                      if k.startswith(entry + " ")), default=None)
+                 for r in res])
+
+    dp_runs = {"fit_1rank": dp1, "fit_2rank": dp2["fit"],
+               "srl_2rank": dp2["srl"], "extract_2rank": dp2["extract"]}
+    dp_walls = {"fit_1rank": dp1_wall, **{
+        f"{k}_2rank": v for k, v in dp2["walls"].items()}}
+    dp = {e: {k: by_rank(res, e) for k, res in dp_runs.items()
+              if any(by_rank(res, e)[0])}
+          for e in (fwd_entry, bwd_entry, "beam_gather_rows")}
     # fused bottleneck at the gate's 256 frames of 56x56, 256/64/256, bf16
     fb256, fb960 = fused_timed["256"], fused_timed["960"]
     fb_others = fused_timed["others"]
@@ -1950,7 +2377,11 @@ def main() -> int:
                    max_abs_err_v1=attn_err[V1_ENTRY],
                    dot_product_ms=s3["dot_product_ms"],
                    five_clips_ms=s3["five_clips_ms"],
-                   launches_by_entry=by_entry, forward_ms=forward_ms),
+                   launches_by_entry=by_entry, forward_ms=forward_ms,
+                   launches_dp={k: v[0] for k, v in dp[fwd_entry].items()},
+                   max_abs_err_dp={k: v[1] for k, v in
+                                   dp[fwd_entry].items()},
+                   dp_walls_s=dp_walls),
         kernel_row("beam_gather_rows", "beam_gather.cu",
                    "benchmarks/probe_beam_gather.py:62", gather_launches,
                    gather_err, gather_times[0], gather_times[1],
@@ -1961,7 +2392,11 @@ def main() -> int:
                    srl_train_step=srl_step, evrel_train_step=evrel_steps,
                    evrel_train_main_wall_s=evrel_walls,
                    bench_lang_train={r["metric"]: r["value"]
-                                     for r in bench_lang}),
+                                     for r in bench_lang},
+                   launches_dp={k: v[0] for k, v in
+                                dp["beam_gather_rows"].items()},
+                   max_abs_err_dp={k: v[1] for k, v in
+                                   dp["beam_gather_rows"].items()}),
         *(kernel_row(
             entry, "fused_bottleneck.cu", replaces, slice_launches[entry],
             fused_err[entry], fb256[key], fused_plain_ms, *fb_bound,
@@ -2010,7 +2445,10 @@ def main() -> int:
                    launches_forward_in_training=train_launches[
                        fwd_entry],
                    train_step=step_res, train_main_wall_s=train_wall,
-                   bench_vbtrain=[r["value"] for r in bench_train]),
+                   bench_vbtrain=[r["value"] for r in bench_train],
+                   launches_dp={k: v[0] for k, v in dp[bwd_entry].items()},
+                   max_abs_err_dp={k: v[1] for k, v in
+                                   dp[bwd_entry].items()}),
         kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
                    slice_launches["staged_copy"], 0.0, copy_ms["staged"],
                    copy_ms["clone"], *copy_bound, copy_ms["clone"]),
@@ -2032,4 +2470,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-child"]:
+        sys.exit(dist_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

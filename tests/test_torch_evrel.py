@@ -214,13 +214,6 @@ def test_evaluator_matches_jax_on_a_partial_batch(env, tmp_path):
     assert len(ev.batch_seconds) == 2
 
 
-def test_evaluator_refuses_several_processes(env):
-    paths, root, comm, _, _ = env
-    with pytest.raises(NotImplementedError, match="several processes"):
-        EvalB_Acc(evrel_cfg(paths, root, "rob_evrel"), comm, None, "cpu",
-                  world_size=2)
-
-
 def test_cli_fits_two_epochs_and_resumes(env, tmp_path):
     """main.py --task_type=evrel: two epochs with dropout on, validated
     each epoch (the top-1 relation per pair in valid_0.pkl, finite

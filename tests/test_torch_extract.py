@@ -136,15 +136,15 @@ def test_cuda_without_gpu_raises(env, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
-def test_several_devices_not_ported(env, tmp_path, monkeypatch):
+def test_several_devices_not_ported(env, tmp_path):
+    """One process drives one GPU; the refusal names the torchrun command
+    that runs one process per GPU instead (several processes:
+    tests/test_torch_dist_eval.py)."""
     cfg, comm, _ = env
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match="torchrun --standalone --nproc_per_node=2"):
         port_extract.extract_features(cfg, comm, out_dir=str(tmp_path),
                                       device="cpu", n_devices=2)
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_extract.extract_features(cfg, comm, out_dir=str(tmp_path),
-                                      device="cpu")
 
 
 def test_port_never_imports_jax():

@@ -293,11 +293,6 @@ def test_evalb_decodes_like_the_jax_evaluator(env):
     assert len(learner.eval_fn.batch_seconds) == 2
 
 
-def test_evalb_refuses_several_processes(env):
-    with pytest.raises(NotImplementedError, match="several processes"):
-        EvalB(mk(env, "w2"), None, None, "cpu", world_size=2)
-
-
 def test_smoothing_and_stats_format():
     sm = SmoothenDict(["loss"])
     sm.add_value({"loss": 2.0})

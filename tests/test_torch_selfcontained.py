@@ -138,6 +138,13 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from vidsitu_tpu_torch.parallel import collectives, mesh
+
+assert {"vidsitu_tpu_torch.parallel.collectives",
+        "vidsitu_tpu_torch.parallel.mesh"} <= set(names), names
+# one process without torchrun's variables: no process group
+assert mesh.init_distributed("cpu").type == "cpu"
+assert not collectives.is_dist() and collectives.get_world_size() == 1
 
 from vidsitu_tpu_torch.data import get_data
 from vidsitu_tpu_torch.data.synth import make_synth_dataset
@@ -171,22 +178,28 @@ def test_port_runs_with_the_jax_package_blocked():
 
 
 # the JAX modules that each port module re-implements (no copy: they import
-# jax or flax), for the language models of the SRL and evrel slice
+# jax or flax), for the language models of the SRL and evrel slice and the
+# several-process helpers, with the name the original imports
 REIMPLEMENTED = {
-    "models/roberta.py": "models/roberta.py",
-    "models/evrel_models.py": "models/evrel_models.py",
-    "models/lang_utils.py": "models/lang_utils.py",
-    "models/rel_transformer.py": "models/rel_transformer.py",
+    "models/roberta.py": ("models/roberta.py", "flax"),
+    "models/evrel_models.py": ("models/evrel_models.py", "flax"),
+    "models/lang_utils.py": ("models/lang_utils.py", "flax"),
+    "models/rel_transformer.py": ("models/rel_transformer.py", "flax"),
+    "parallel/collectives.py": ("parallel/collectives.py", "jax"),
+    "parallel/mesh.py": ("parallel/mesh.py", "jax"),
 }
 
 
 @pytest.mark.parametrize("rel", sorted(REIMPLEMENTED))
 def test_language_modules_are_reimplemented_not_imported(rel):
-    """Each module has its JAX original beside it, which imports flax, and
-    imports nothing banned itself."""
-    port, orig = PORT / rel, JAX_PKG / REIMPLEMENTED[rel]
+    """Each module has its JAX original beside it, which imports flax (the
+    parallel helpers: jax), and imports nothing banned itself; the import
+    scan walks it."""
+    orig_rel, lib = REIMPLEMENTED[rel]
+    port, orig = PORT / rel, JAX_PKG / orig_rel
     assert port.is_file() and orig.is_file()
-    assert "flax" in {root for root, _ in _imported_roots(orig)}
+    assert port in _port_sources()
+    assert lib in {root for root, _ in _imported_roots(orig)}
     bad = [root for root, _ in _imported_roots(port) if root in BANNED]
     assert not bad, bad
 

@@ -102,13 +102,6 @@ def test_evaluator_matches_jax(env):
     assert len(ev.batch_seconds) == 2
 
 
-def test_evaluator_refuses_several_processes(env):
-    paths, root, comm, _ = env
-    cfg = srl_cfg(paths, root, "tx_only")
-    with pytest.raises(NotImplementedError, match="several processes"):
-        EvalB_Gen(cfg, comm, None, "cpu", world_size=2)
-
-
 def _cli_args(paths, root, *extra):
     args = ["cli_srl", "--task_type=vb_arg",
             "--mdl.mdl_name=sfpret_txe_txd_vbarg", "--train.dtype=float32",

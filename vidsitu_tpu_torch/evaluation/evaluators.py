@@ -3,22 +3,35 @@ reference: evl_vsitu.py): ``EvalB`` for verb prediction (:276),
 ``EvalB_Acc`` for event relations (:327) and ``EvalB_Gen`` for SRL
 generation (:401).
 
-One process: pad each batch to the eval batch size, run the model, decode
-its output into leaderboard entries, dedupe by ``ann_idx``, write
-``{dl_name}_0.pkl`` and score it (``EvlFn_Vb`` / ``EvalFnCap``). Each
+Each rank pads each batch of its loader shard to the eval batch size, runs
+the model and decodes its own rows into leaderboard entries, each under the
+``ann_idx`` of its own batch's ``vseg_idx`` (the JAX package decodes the
+global batch on rank 0 against rows it assumes rank-major,
+evaluators.py:357). Rank 0 merges every rank's entries (``_merge_ranks``),
+drops the sampler's padding duplicates by ``ann_idx``, orders the entries by
+``ann_idx``, writes ``{dl_name}_0.pkl`` and scores it (``EvlFn_Vb`` /
+``EvalFnCap`` / ``EvlFn_EvRel``); the other ranks return zeros, as the JAX
+package's do. One process writes and scores its own entries alike. Each
 evaluator is ``evaluator(dl, dl_name, pred_path) -> (loss_dict,
 metric_dict)`` with ``met_keys``, as the Learner calls it.
 """
 
 from __future__ import annotations
 
+import pickle
 import time
+import uuid
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.collectives import (
+    broadcast_object,
+    reduce_dict_corr,
+    synchronize,
+)
 from ..utils.io import write_pickle
 from .evl_fns import EvalFnCap, EvlFn_EvRel, EvlFn_Vb
 
@@ -34,6 +47,80 @@ def pad_batch_to(batch: Dict[str, np.ndarray], size: int) -> Dict[str, np.ndarra
         k: np.concatenate([v, np.repeat(v[-1:], reps, axis=0)], axis=0)
         for k, v in batch.items()
     }
+
+
+def sampler_rows(dl) -> int:
+    """How many of this rank's loader rows come before the sampler's
+    padding: ``ShardedSampler`` repeats the order from its start until every
+    shard has as many rows, and shard s takes the padded order's positions
+    s, s + W, ...; those at or past the dataset's length are repeats. A
+    loader without a sharded sampler has no such rows."""
+    sampler = getattr(dl, "sampler", None)
+    if sampler is None or getattr(sampler, "num_shards", 1) == 1:
+        return len(dl.dataset)
+    w, s = sampler.num_shards, sampler.shard_id
+    return max(0, (sampler.n - s + w - 1) // w)
+
+
+class _RankedEvaluator:
+    """The per-rank pickle, the ``.done`` marker and rank 0's merge
+    (port of the JAX package's ``_run_token`` / ``_merge_ranks``,
+    evaluators.py:106-187)."""
+
+    def __init__(self, rank: int = 0, world_size: int = 1):
+        self.rank = rank
+        self.world_size = world_size
+        self._merge_seq = 0
+        self._merge_token: Optional[str] = None
+
+    def _run_token(self) -> str:
+        """This run's token, rank 0's, on every rank: it tells this run's
+        markers from those a crashed run with the same uid left. A failed
+        broadcast raises (the JAX package falls back to a per-rank token,
+        and the merge then times out on markers that never come)."""
+        if self._merge_token is None:
+            self._merge_token = broadcast_object(uuid.uuid4().hex[:8])
+        return self._merge_token
+
+    def _merge_ranks(self, pred_path, dl_name: str,
+                     own: List[Dict]) -> Optional[Path]:
+        """Write this rank's entries; on rank 0, merge every rank's and
+        write ``{dl_name}_0.pkl`` (returned; None on the other ranks). Each
+        call has a sequence number, equal on every rank, and each rank's
+        ``.done`` marker carries it with the run token: rank 0 reads a
+        rank's pickle only behind this call's marker, else raises rather
+        than score another call's predictions."""
+        pred_path = Path(pred_path)
+        pred_path.mkdir(parents=True, exist_ok=True)
+        if self.world_size == 1:
+            return _write_unique(own, pred_path, dl_name)
+        self._merge_seq += 1
+        seq, tok = self._merge_seq, self._run_token()
+        if seq == 1:
+            for stale in pred_path.glob(f".{dl_name}_{self.rank}.*.done"):
+                stale.unlink()
+        write_pickle(own, pred_path / f"{dl_name}_{self.rank}.pkl")
+        (pred_path / f".{dl_name}_{self.rank}.{tok}.{seq}.done").touch()
+        synchronize()  # every rank's pickle and marker are in place
+        merged = list(own)
+        if self.rank == 0:
+            for w in range(1, self.world_size):
+                marker = pred_path / f".{dl_name}_{w}.{tok}.{seq}.done"
+                if not marker.exists():
+                    raise RuntimeError(
+                        f"eval merge: rank {w} published no {marker.name} "
+                        f"in {pred_path}; refusing to score a partial merge")
+                with open(pred_path / f"{dl_name}_{w}.pkl", "rb") as f:
+                    merged += pickle.load(f)
+                marker.unlink()
+            (pred_path / f".{dl_name}_0.{tok}.{seq}.done").unlink()
+        synchronize()  # rank 0 has read them: the next call may overwrite
+        if self.rank != 0:
+            return None
+        return _write_unique(merged, pred_path, dl_name)
+
+    def _zeros(self):
+        return {"loss": 0.0}, {k: 0.0 for k in self.met_keys}
 
 
 def conv_seq_to_srl(inp_seq: str, ag_start_values) -> Dict[str, str]:
@@ -58,7 +145,7 @@ def conv_seq_to_srl(inp_seq: str, ag_start_values) -> Dict[str, str]:
     return vb_dct
 
 
-class EvalB_Gen:
+class EvalB_Gen(_RankedEvaluator):
     """``evaluator(dl, dl_name, pred_path) -> (loss_dict, metric_dict)``.
 
     ``batch_seconds`` holds each batch's wall time, from the host batch to
@@ -67,11 +154,9 @@ class EvalB_Gen:
     met_keys = ["cider", "rouge", "lea", "MacroVb_cider", "MacroArg_cider"]
 
     def __init__(self, cfg, comm, generate_fn, device,
-                 split_type: str = "valid", world_size: int = 1):
-        if world_size != 1:
-            raise NotImplementedError(
-                "EvalB_Gen over several processes is not ported yet "
-                "(ROADMAP.md, Queue 1 item 5)")
+                 split_type: str = "valid", rank: int = 0,
+                 world_size: int = 1):
+        super().__init__(rank, world_size)
         self.cfg = cfg
         self.comm = comm
         self.generate_fn = generate_fn
@@ -111,23 +196,28 @@ class EvalB_Gen:
             padded = pad_batch_to(batch, dl.batch_size)
             results += self.decode_batch(self.run_model(padded),
                                          padded["vseg_idx"])
-        fname = _write_unique(results, pred_path, dl_name)
+        fname = self._merge_ranks(pred_path, dl_name, results)
+        if fname is None:
+            return self._zeros()
         out_acc = self.score(str(fname))
         return ({"loss": 0.0},
                 {k: float(out_acc[k]) for k in self.met_keys if k in out_acc})
 
 
 def _write_unique(results: List[Dict], pred_path, dl_name: str) -> Path:
+    """``{dl_name}_0.pkl``: the first entry of each ``ann_idx``, in the
+    order of ``ann_idx``."""
     seen = set()
     uniq = [r for r in results
             if r["ann_idx"] not in seen and not seen.add(r["ann_idx"])]
+    uniq.sort(key=lambda r: r["ann_idx"])
     Path(pred_path).mkdir(parents=True, exist_ok=True)
     fname = Path(pred_path) / f"{dl_name}_0.pkl"
     write_pickle(uniq, fname)
     return fname
 
 
-class EvalB:
+class EvalB(_RankedEvaluator):
     """Verb prediction (evl_vsitu.py:21-145): the model's eval-mode forward,
     softmax in float64, the top-5 verbs and their probabilities per event,
     the pickle, ``EvlFn_Vb.simple_acc``. ``batch_seconds`` holds each
@@ -136,11 +226,8 @@ class EvalB:
     met_keys = ["Per_Ev_Top_1", "Per_Ev_Top_5", "recall_macro_1_th_9"]
 
     def __init__(self, cfg, comm, model, device, split_type: str = "valid",
-                 world_size: int = 1):
-        if world_size != 1:
-            raise NotImplementedError(
-                "EvalB over several processes is not ported yet "
-                "(ROADMAP.md, Queue 1 item 5)")
+                 rank: int = 0, world_size: int = 1):
+        super().__init__(rank, world_size)
         self.cfg = cfg
         self.comm = comm
         self.model = model
@@ -187,31 +274,32 @@ class EvalB:
             padded = pad_batch_to(batch, dl.batch_size)
             results += self.decode_batch(self.run_model(padded),
                                          padded["vseg_idx"])
-        fname = _write_unique(results, pred_path, dl_name)
+        fname = self._merge_ranks(pred_path, dl_name, results)
+        if fname is None:
+            return self._zeros()
         out_acc = self.evl_met.simple_acc(str(fname),
                                           split_type=self.split_type)
         return ({"loss": 0.0},
                 {k: float(out_acc[k]) for k in self.met_keys if k in out_acc})
 
 
-class EvalB_Acc:
+class EvalB_Acc(_RankedEvaluator):
     """Event relations (evl_vsitu.py:217-261): the model's eval-mode logits
     (B, 4, N, 5), softmax in float64, the top-1 relation and its
     probability per pair and annotator, the pickle, and
     ``EvlFn_EvRel.simple_acc_evrel``. The validation loss is the masked
     cross-entropy recomputed on the host in float64 from the same logits,
     over the real rows of a padded final batch only, weighted by each
-    batch's real rows (evaluators.py:349-360). ``batch_seconds`` holds each
-    batch's wall time, host batch to logits on the host."""
+    batch's real rows (evaluators.py:349-360); over several ranks, the
+    ranks' losses weighted by their real rows (``reduce_dict_corr``, in
+    float64), the sampler's padding repeats not counted. ``batch_seconds``
+    holds each batch's wall time, host batch to logits on the host."""
 
     met_keys = ["Macro_Top_1", "Top_1"]
 
     def __init__(self, cfg, comm, model, device, split_type: str = "valid",
-                 world_size: int = 1):
-        if world_size != 1:
-            raise NotImplementedError(
-                "EvalB_Acc over several processes is not ported yet "
-                "(ROADMAP.md, Queue 1 item 5)")
+                 rank: int = 0, world_size: int = 1):
+        super().__init__(rank, world_size)
         self.cfg = cfg
         self.comm = comm
         self.model = model
@@ -267,17 +355,23 @@ class EvalB_Acc:
         results: List[Dict] = []
         losses: List[float] = []
         nums: List[int] = []
+        left = sampler_rows(dl)  # rows before the sampler's repeats
         for batch in dl:
-            n_real = next(iter(batch.values())).shape[0]
+            n_real = min(next(iter(batch.values())).shape[0], left)
+            left -= n_real
             padded = pad_batch_to(batch, dl.batch_size)
             out = self.run_model(padded)
             results += self.decode_batch(out, padded["vseg_idx"])
-            losses.append(self.loss_from_outputs(out, padded["evrel_labs"],
-                                                 n_real))
-            nums.append(n_real)
-        fname = _write_unique(results, pred_path, dl_name)
+            if n_real:
+                losses.append(self.loss_from_outputs(
+                    out, padded["evrel_labs"], n_real))
+                nums.append(n_real)
+        local = float(np.average(losses, weights=nums)) if losses else 0.0
+        val_loss = reduce_dict_corr({"loss": local}, float(sum(nums)))["loss"]
+        fname = self._merge_ranks(pred_path, dl_name, results)
+        if fname is None:
+            return {"loss": val_loss}, {k: 0.0 for k in self.met_keys}
         out_acc = self.evl_met.simple_acc_evrel(str(fname),
                                                 split_type=self.split_type)
-        val_loss = float(np.average(losses, weights=nums)) if losses else 0.0
         return ({"loss": val_loss},
                 {k: float(out_acc[k]) for k in self.met_keys if k in out_acc})

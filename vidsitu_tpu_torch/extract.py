@@ -6,6 +6,12 @@ the SFPreFeats_* SRL models and the sfpret_* evrel models.
 
     python -m vidsitu_tpu_torch.extract --device=cuda --split=valid \\
         --ckpt=sfbase.pth --mdl.sf_mdl_name=i3d_r50_nl_8x8
+
+One process per GPU: under ``torchrun`` each rank extracts its shard of the
+segments (``ShardedSampler``, as vidsitu_tpu/extract.py:138-145 does)::
+
+    torchrun --standalone --nproc_per_node=8 -m vidsitu_tpu_torch.extract \\
+        --device=cuda --split=valid --ckpt=sfbase.pth
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from .convert.from_flax import flax_to_state_dict, seeded_variables
 from .data.dataset import VsituDS
 from .data.loader import DataLoader, fold_frame_events
 from .models.vb_models import build_feat_extractor
+from .parallel.collectives import get_rank, get_world_size
 
 _FRAME_KEYS = ("frms_ev_fast_tensor", "frms_ev_slow_tensor")
 
@@ -62,15 +69,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_single_process(n_devices: int) -> None:
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = torch.distributed.get_world_size()
-    if n_devices != 1 or world != 1:
+def _check_one_device(n_devices: int) -> None:
+    if n_devices != 1:
         raise NotImplementedError(
-            f"extraction over several GPUs or processes (n_devices="
-            f"{n_devices}, world size {world}) is not ported yet: one process "
-            "per GPU comes in a later slice (ROADMAP.md, Queue 1)"
+            f"n_devices={n_devices}: a process drives one GPU. Start one "
+            f"process per GPU instead: torchrun --standalone "
+            f"--nproc_per_node={n_devices} -m vidsitu_tpu_torch.extract "
+            "--device=cuda ..."
         )
 
 
@@ -109,12 +114,17 @@ def extract_features(
 
     ``timings``, when given, receives the host clock (``time.perf_counter``)
     after each batch's features are fetched.
+
+    Under a process group each rank takes its shard of every split's
+    segments; the sampler repeats a few so that every shard has as many,
+    and their files are written twice, each atomically. The counts are this
+    rank's files.
     """
     import time
 
     if clip_batch < 1:
         raise ValueError(f"clip_batch must be >= 1, got {clip_batch}")
-    _check_single_process(n_devices)
+    _check_one_device(n_devices)
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     splits = splits or ["valid", "train"]
@@ -131,7 +141,8 @@ def extract_features(
     for split in splits:
         ds = FramesOnlyDS(cfg, comm, split)
         dl = DataLoader(ds, batch_size=batch_size, shuffle=False,
-                        drop_last=False, num_threads=num_threads)
+                        drop_last=False, num_threads=num_threads,
+                        num_shards=get_world_size(), shard_id=get_rank())
         n = 0
         parts: List[Dict[str, np.ndarray]] = []  # buffered folded clips
         n_buf = 0
@@ -258,10 +269,14 @@ def main(argv=None):
              "for TPU lanes and is not yet measured on a GPU")
     ap.add_argument(
         "--n_devices", type=int, default=1,
-        help="GPUs to use; only 1 is ported (one process per GPU comes in "
-             "a later slice)")
+        help="GPUs this process drives: 1 (start one process per GPU with "
+             "torchrun)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device; cuda raises when no GPU is visible")
+                    help="torch device; cuda raises when no GPU is visible; "
+                         "under torchrun cuda is cuda:{LOCAL_RANK}")
+    ap.add_argument("--dist_backend", default=None,
+                    help="nccl or gloo (default: nccl on CUDA, gloo on the "
+                         "CPU); naming one starts a process group")
     ap.add_argument("--num_threads", type=int, default=8,
                     help="JPEG-decode thread pool size")
     ap.add_argument("--ckpt", default="", help="SFBase torch checkpoint")
@@ -272,7 +287,8 @@ def main(argv=None):
     ap.add_argument("overrides", nargs="*", help="--dotted.key=value")
     args, unknown = ap.parse_known_args(argv)
 
-    from .data.comm import build_comm
+    from .parallel.collectives import is_dist, synchronize
+    from .parallel.mesh import init_distributed
     from .utils.config import get_cfg_with_overrides
 
     overrides = {}
@@ -289,7 +305,20 @@ def main(argv=None):
             "--ckpt is required (pass --allow_random_weights to extract "
             "from seeded random weights, e.g. for smoke tests)"
         )
-    device = resolve_device(args.device)
+    had_group = is_dist()
+    device = init_distributed(args.device, args.dist_backend)
+    try:
+        counts = _extract_cli(cfg, args, device)
+        synchronize()
+    finally:
+        if is_dist() and not had_group:
+            torch.distributed.destroy_process_group()
+    print(counts)
+
+
+def _extract_cli(cfg, args, device) -> Dict[str, int]:
+    from .data.comm import build_comm
+
     comm = build_comm(cfg)
     state_dict = None
     if args.ckpt:
@@ -302,14 +331,13 @@ def main(argv=None):
             "params": {"backbone": conv["params"]["backbone"]},
             "batch_stats": {"backbone": conv["batch_stats"]["backbone"]},
         })
-    counts = extract_features(
+    return extract_features(
         cfg, comm, state_dict=state_dict,
         splits=args.split or ["valid", "train"],
         out_dir=args.out_dir, batch_size=args.batch_size,
         num_threads=args.num_threads, mdl_name=args.mdl_name_used,
         clip_batch=args.clip_batch, device=device, n_devices=args.n_devices,
     )
-    print(counts)
 
 
 if __name__ == "__main__":

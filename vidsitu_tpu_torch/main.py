@@ -2,7 +2,7 @@
 --key=val ...`` (the surface of the JAX package's main.py: a run id plus
 dotted-key config overrides; reference main_dist.py:132-172).
 
-One process, one device. The three tasks train and validate::
+One device per process. The three tasks train and validate::
 
     python -m vidsitu_tpu_torch.main vb_run --task_type=vb \\
         --mdl.mdl_name=sf_base --mdl.sf_mdl_name=i3d_r50_nl_8x8 --device=cuda
@@ -22,10 +22,23 @@ more (``run_final_val``). ``--only_val``, ``--only_test`` and
     python -m vidsitu_tpu_torch.main srl_eval --task_type=vb_arg \\
         --only_val=True --device=cuda --weights=srl_state_dict.pt
 
+Several processes, one per GPU, through ``torchrun`` (the JAX package's
+``jax.distributed.initialize``, main.py:75-89): each rank trains on its
+shard of the global batch ``train.bs`` (BatchNorm statistics and the loss
+over the global batch, gradients summed over the ranks), and rank 0 merges
+and scores the ranks' predictions::
+
+    torchrun --standalone --nproc_per_node=8 -m vidsitu_tpu_torch.main \
+        vb_run --task_type=vb --mdl.sf_mdl_name=i3d_r50_nl_8x8 --device=cuda
+
 Port-only flags, given in the same ``--key=value`` form:
 
   * ``--device``: torch device (default ``cuda``; raises when no GPU is
-    visible, never falls back to the CPU);
+    visible, never falls back to the CPU); under ``torchrun``, ``cuda`` is
+    ``cuda:{LOCAL_RANK}`` and ``cuda:N`` puts every rank on card N;
+  * ``--dist_backend``: ``nccl`` (the default on CUDA) or ``gloo`` (the
+    default on the CPU; also two ranks on one card, which NCCL refuses);
+    naming one starts a process group even for a single rank;
   * ``--weights``: a torch file holding the port model's ``state_dict``
     (evaluation, or the starting point of a fit);
   * ``--allow_random_weights=True``: seeded random weights from
@@ -39,7 +52,7 @@ from __future__ import annotations
 import sys
 from typing import Any, Dict, List, Optional
 
-PORT_FLAGS = ("device", "weights", "allow_random_weights")
+PORT_FLAGS = ("device", "weights", "allow_random_weights", "dist_backend")
 
 
 def parse_cli(argv: List[str]):
@@ -51,7 +64,8 @@ def parse_cli(argv: List[str]):
     uid = argv[0]
     overrides: Dict[str, str] = {}
     flags: Dict[str, str] = {"device": "cuda", "weights": "",
-                             "allow_random_weights": "False"}
+                             "allow_random_weights": "False",
+                             "dist_backend": ""}
     for arg in argv[1:]:
         if not (arg.startswith("--") and "=" in arg):
             raise SystemExit(f"expected --key=value, got {arg!r}")
@@ -98,16 +112,29 @@ def main_fn(cfg, uid: str, device, weights: str = "",
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """Join the process group ``torchrun`` describes (if any), build the
+    config, run ``main_fn``; a group this call started is destroyed on the
+    way out."""
+    from .parallel.collectives import is_dist
+    from .parallel.mesh import init_distributed
     from .utils.config import CfgProcessor, get_cfg_with_overrides
 
     uid, overrides, flags = parse_cli(
         list(argv) if argv is not None else sys.argv[1:])
-    cfg = get_cfg_with_overrides(uid, **overrides)
-    cfg["cmd_str"] = " ".join(sys.argv)
-    cfg.freeze()
-    print(CfgProcessor.to_str(cfg))
-    return main_fn(cfg, uid, flags["device"], flags["weights"],
-                   flags["allow_random_weights"].lower() in ("1", "true"))
+    had_group = is_dist()
+    device = init_distributed(flags["device"], flags["dist_backend"] or None)
+    try:
+        cfg = get_cfg_with_overrides(uid, **overrides)
+        cfg["cmd_str"] = " ".join(sys.argv)
+        cfg.freeze()
+        print(CfgProcessor.to_str(cfg))
+        return main_fn(cfg, uid, device, flags["weights"],
+                       flags["allow_random_weights"].lower() in ("1", "true"))
+    finally:
+        if is_dist() and not had_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

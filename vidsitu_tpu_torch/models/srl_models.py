@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.collectives import get_world_size
 from . import common
 from .common import MLP
 from .transformer import TransformerDecoder, TransformerEncoder, TxConfig
@@ -52,13 +53,23 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean CE over non-pad labels, in float32, 0 when every label is
     pad. The pad label is replaced by class 0 before the gather and masked
     after it, so a pad id outside the classes (the verb task's -1) works as
-    it does in the JAX package."""
+    it does in the JAX package.
+
+    Under a process group of several ranks, with autograd on, the
+    denominator is the count of non-pad labels over every rank (all-reduced,
+    no gradient): each rank returns its share of the global batch's mean,
+    the ranks' shares sum to it, and so do their gradients (``Learner``
+    sums them)."""
     labels = labels.reshape(-1)
     mask = labels != pad_id
     ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                          torch.where(mask, labels, 0), reduction="none")
     mask = mask.float()
-    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    count = mask.sum()
+    if get_world_size() > 1 and torch.is_grad_enabled():
+        count = count.detach().clone()
+        torch.distributed.all_reduce(count)
+    return (ce * mask).sum() / count.clamp(min=1.0)
 
 
 class SRLModel(nn.Module):

@@ -8,7 +8,9 @@ SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
     running statistics; ``train()`` with the batch statistics (biased
     variance, reduced in float32 unless ``bn_f32_stats`` is off) and updates
     the running ones as flax does, ``ra <- 0.9 ra + 0.1 batch``, the biased
-    variance included (:class:`BatchNorm3d`).
+    variance included (:class:`BatchNorm3d`). Under a process group of
+    several ranks the batch statistics are the global batch's, as in the JAX
+    package's one program over the global batch.
   * Parameters stay in their own dtype (float32) and products run in the
     compute dtype: each conv casts its weight to its input's dtype, as
     flax's ``dtype`` / ``param_dtype`` split does.
@@ -41,6 +43,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import nonlocal_attention
+from ..parallel.collectives import get_world_size
 
 # Per-stage temporal-kernel PATTERNS (PySlowFast _TEMPORAL_KERNEL_BASIS):
 # stem + res2..res5; a stage's pattern is tiled across its blocks.
@@ -195,7 +198,11 @@ class BatchNorm3d(nn.BatchNorm3d):
     the output is in the input's dtype; the running statistics take
     ``0.9 ra + 0.1 batch`` with the biased variance (``nn.BatchNorm3d``
     alone would take the unbiased one), except while a remat block is
-    recomputed. ``zero_init``: flax's ``scale_init`` is zeros here."""
+    recomputed. ``zero_init``: flax's ``scale_init`` is zeros here.
+
+    Under a process group of several ranks (``torch.distributed``), the
+    batch statistics are those of every rank's batch together
+    (:meth:`_global_stats`); one rank computes what one process does."""
 
     def __init__(self, features: int, zero_init: bool = False,
                  f32_stats: bool = True):
@@ -208,6 +215,8 @@ class BatchNorm3d(nn.BatchNorm3d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         update = not getattr(_REMAT, "active", False)
+        if get_world_size() > 1:
+            return self._global_stats(x, update)
         if not self.f32_stats:
             return self._low_precision_stats(x, update)
         # the op updates copies (autograd keeps them, and a recomputation
@@ -223,6 +232,44 @@ class BatchNorm3d(nn.BatchNorm3d):
                 self.running_var.mul_(BN_MOMENTUM).add_(fresh * ((n - 1) / n))
                 self.running_mean.copy_(mean)
         return y
+
+    def _global_stats(self, x: torch.Tensor, update: bool):
+        """flax's statistics over the global batch: each rank's per-channel
+        sums of x and x^2 and its count, all-reduced with autograd (whose
+        backward sums the ranks' gradients, so the gradient through the
+        statistics is the global batch's), then the mean and the biased
+        E[x^2] - mean^2 in float32 (float64 for a float64 input), or,
+        without ``f32_stats``, from each rank's means in the input's dtype
+        (flax's ``force_float32_reductions=False``)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        dims = (0, 2, 3, 4)
+        n = x.numel() // x.shape[1]
+        acc = torch.promote_types(x.dtype, torch.float32)
+        if self.f32_stats:
+            xs = x.to(acc)
+            s1, s2 = xs.sum(dim=dims), (xs * xs).sum(dim=dims)
+        else:
+            s1 = x.mean(dim=dims).to(acc) * n
+            s2 = (x * x).mean(dim=dims).to(acc) * n
+        tot = all_reduce(torch.cat([s1, s2, s1.new_full((1,), float(n))]))
+        c = x.shape[1]
+        mean, mean2 = tot[:c] / tot[-1], tot[c:2 * c] / tot[-1]
+        if not self.f32_stats:
+            mean, mean2 = mean.to(x.dtype), mean2.to(x.dtype)
+        var = (mean2 - mean * mean).clamp(min=0)
+        shape = (1, -1, 1, 1, 1)
+        mul = torch.rsqrt(var.to(acc) + self.eps) * self.weight
+        centered = (x.to(acc) - mean.to(acc).view(shape) if self.f32_stats
+                    else (x - mean.view(shape)).to(acc))
+        y = centered * mul.view(shape) + self.bias.view(shape)
+        if update:
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean.to(self.running_mean.dtype), alpha=1.0 - BN_MOMENTUM)
+                self.running_var.mul_(BN_MOMENTUM).add_(
+                    var.to(self.running_var.dtype), alpha=1.0 - BN_MOMENTUM)
+        return y.to(x.dtype)
 
     def _low_precision_stats(self, x: torch.Tensor, update: bool):
         """flax with ``force_float32_reductions=False``: mean and

@@ -1,8 +1,9 @@
 """cfg -> a ready Learner (port of vidsitu_tpu/train/build.py; reference:
 main_dist.py:94-129): data, model (initialised, pretrained weights,
-weights given by the caller), the task's evaluator and the Learner, on one
-process and one device, for the three tasks: ``vb``, ``vb_arg`` and
-``evrel``, training and evaluation.
+weights given by the caller), the task's evaluator and the Learner, for
+the three tasks: ``vb``, ``vb_arg`` and ``evrel``, training and evaluation,
+on one device per process. Under a process group each rank loads its shard
+of the global batch (``get_data(cfg, num_shards=world, shard_id=rank)``).
 """
 
 from __future__ import annotations
@@ -49,13 +50,27 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         build_srl_generate_fn,
         init_model_variables,
     )
+    from ..parallel.collectives import get_rank, get_world_size, is_dist
+    from ..parallel.mesh import check_axes, data_extent, make_mesh
     from .pretrained import load_pretrained_variables
 
     task = cfg.task_type
     if task not in ("vb", "vb_arg", "evrel"):
         raise NotImplementedError(f"task_type {task!r}")
     dev = resolve_device(device)
-    data = get_data(cfg)
+    rank, world = get_rank(), get_world_size()
+    if is_dist():
+        extent = data_extent(make_mesh(cfg, dev.type))
+    else:
+        check_axes(cfg)
+        extent = 1
+    for key in ("bs", "bsv"):
+        # each rank loads global batch / world rows (learner.py:108-126)
+        if int(cfg.train[key]) % extent:
+            raise ValueError(
+                f"train.{key}={cfg.train[key]} (the global batch) is not "
+                f"divisible by the {extent} ranks of the 'data' axis")
+    data = get_data(cfg, num_shards=world, shard_id=rank)
     comm = data.valid_dl.dataset.comm
     model = build_model(cfg, comm)
     if task == "vb_arg" and not is_training(cfg):
@@ -70,14 +85,17 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         if dev.type == "cuda":
             model.to(memory_format=torch.channels_last_3d)
         eval_fn = EvalB(cfg, comm, model, dev, split_type=(
-            "valid" if not cfg.only_test else "test_verb"))
+            "valid" if not cfg.only_test else "test_verb"), rank=rank,
+            world_size=world)
     elif task == "evrel":
         eval_fn = EvalB_Acc(cfg, comm, model, dev, split_type=(
-            "valid" if not cfg.only_test else "test_evrel"))
+            "valid" if not cfg.only_test else "test_evrel"), rank=rank,
+            world_size=world)
     else:
         eval_fn = EvalB_Gen(
             cfg, comm, build_srl_generate_fn(cfg, comm, model), dev,
-            split_type="valid" if not cfg.only_test else "test_srl")
+            split_type="valid" if not cfg.only_test else "test_srl",
+            rank=rank, world_size=world)
     model.train(is_training(cfg))
     return Learner(uid=uid, cfg=cfg, model=model, data=data, eval_fn=eval_fn,
                    device=dev)

@@ -1,5 +1,6 @@
 """Training engine: the Learner (port of vidsitu_tpu/train/learner.py;
-reference: utils/trn_utils.py:315-939), on one process and one device.
+reference: utils/trn_utils.py:315-939), on one device per process, one
+process or several (``torch.distributed``, ``parallel/``).
 
 The JAX package's lifecycle, kept: log-dir scaffolding, resume by uid, fit
 with per-epoch validation and a best-metric checkpoint (strict: a tie is no
@@ -22,6 +23,19 @@ PyTorch:
     state goes into every checkpoint (the JAX package keeps its dropout key
     there for the same reason): a resumed run continues the same masks;
   * the model validates in ``eval()`` and returns to ``train()`` after.
+
+Under a process group each rank trains on its shard of the global batch and
+the step computes what the JAX package's one program computes over the
+global batch: BatchNorm takes the global batch's statistics and the loss is
+the global masked mean (each rank's share; ``models/``), so the ranks'
+gradients are summed, not averaged, in one flat all-reduce before the
+update (every ``grad_accum``-th step; a parameter without a gradient on
+every rank keeps none). Each rank draws dropout from its own generator,
+seeded from ``(train.seed, rank)``; rank 0 writes the logs, the tracker and
+the checkpoints, which hold every rank's generator state; rank 0's
+validation results reach every rank, so best-metric, plateau and save
+decisions agree; SIGTERM is honoured at the epoch boundary, once any rank
+has seen it (``_sync_preempt_flag``).
 """
 
 from __future__ import annotations
@@ -37,6 +51,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.collectives import (
+    all_gather_object,
+    broadcast_object,
+    collective_device,
+    get_rank,
+    get_world_size,
+    is_dist,
+    synchronize,
+)
 from ..utils.config import CfgProcessor
 
 
@@ -62,6 +85,12 @@ class SmoothenDict:
 def good_format_stats(names, stats) -> str:
     # a scorer that omits a metric logs 0 rather than failing the epoch
     return " ".join(f"{k}: {float(stats.get(k, 0.0)):.4f}" for k in names)
+
+
+def dropout_seed(seed: int, rank: int) -> int:
+    """Rank ``rank``'s dropout seed: ``seed`` on rank 0 (a one-process run
+    draws what it drew before), distinct on every other rank."""
+    return int(seed) + (int(rank) << 32)
 
 
 def batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -110,13 +139,16 @@ class Learner:
         self._preempt_requested = False
         self._stale_preempt = None  # consumed preempt ckpt, deleted on save
         self.ckpt_backend = get_backend(cfg.train.ckpt_backend)
+        self.rank, self.world_size = get_rank(), get_world_size()
+        self.is_main = self.rank == 0
         # the dropout masks' random state, on the training device; the only
         # random state of a step (the JAX package's rng)
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
-            int(cfg.train.seed))
+            dropout_seed(cfg.train.seed, self.rank))
         frozen = make_freeze_mask(cfg, model)
         params = dict(model.named_parameters())
         self._frozen = [params[n] for n in frozen] if frozen else []
+        self._params = list(params.values())
         self.init_log_dirs()
         self.prepare_log_file()
         if cfg.train.resume:
@@ -143,18 +175,23 @@ class Learner:
         self.logger = logging.getLogger(f"vidsitu_tpu_torch.{self.uid}")
         self.logger.setLevel(logging.DEBUG)
         if not self.logger.handlers:
-            fh = logging.FileHandler(self.extra_logger_file)
             sh = logging.StreamHandler(sys.stdout)
             sh.setLevel(logging.INFO)
-            self.logger.addHandler(fh)
             self.logger.addHandler(sh)
+            if self.is_main:
+                self.logger.addHandler(
+                    logging.FileHandler(self.extra_logger_file))
 
     def prepare_log_file(self):
+        if not self.is_main:
+            return
         with open(self.txt_log_file, "a") as f:
             f.write(CfgProcessor.to_str(self.cfg))
             f.write("\n\n")
 
     def update_log_file(self, line: str):
+        if not self.is_main:
+            return
         with open(self.txt_log_file, "a") as f:
             f.write(line + "\n")
 
@@ -185,7 +222,9 @@ class Learner:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One forward and backward on a device batch; every
         ``train.grad_accum`` steps, one update with the mean of their
-        gradients. Returns the loss, still on the device."""
+        gradients (under a process group: of the global batches', summed
+        over the ranks here). Returns the loss (the global batch's), still
+        on the device."""
         from ..models.common import dropout_generator
 
         self.model.train()
@@ -194,19 +233,45 @@ class Learner:
         (loss / self._grad_accum).backward()
         self._accum_count += 1
         if self._accum_count == self._grad_accum:
+            if is_dist():
+                self._sum_grads()
             for p in self._frozen:
                 if p.grad is not None:
                     p.grad.zero_()
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self._accum_count = 0
-        return loss.detach()
+        loss = loss.detach()
+        if is_dist():
+            loss = loss.clone()
+            torch.distributed.all_reduce(loss)
+        return loss
+
+    def _sum_grads(self):
+        """Sum the ranks' gradients in one flat all-reduce, with a flag per
+        parameter: one that has no gradient on any rank keeps none (Adam
+        then leaves it alone, as on one process), one that has a gradient
+        on some rank takes zeros where it has none."""
+        params = self._params
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        flags = torch.tensor([p.grad is not None for p in params],
+                             dtype=grads[0].dtype, device=grads[0].device)
+        flat = torch.cat([g.reshape(-1) for g in grads] + [flags])
+        torch.distributed.all_reduce(flat)
+        sizes = [g.numel() for g in grads] + [len(params)]
+        *parts, flags = flat.split(sizes)
+        for p, g, part, any_grad in zip(params, grads, parts,
+                                         flags.tolist()):
+            p.grad = g.copy_(part.view(g.shape)) if any_grad else None
 
     # -- preemption -------------------------------------------------------------
     def _install_preempt_handler(self):
-        """SIGTERM -> stop after the step in flight, checkpoint to the
-        preempt file, return (``train.handle_preemption``). Returns the
-        callable that restores the previous handler."""
+        """SIGTERM -> stop after the step in flight (one process) or the
+        epoch in flight (several: a rank that stopped alone would leave the
+        others waiting in a collective), checkpoint to the preempt file,
+        return (``train.handle_preemption``). Returns the callable that
+        restores the previous handler."""
         self._preempt_requested = False
         if not getattr(self.cfg.train, "handle_preemption", True):
             return lambda: None
@@ -220,6 +285,18 @@ class Learner:
             return lambda: signal.signal(signal.SIGTERM, prev)
         except ValueError:  # not the main thread
             return lambda: None
+
+    def _sync_preempt_flag(self) -> bool:
+        """The preempt flag OR-ed over the ranks, at the epoch boundary that
+        every rank reaches together: if any rank saw SIGTERM, all take the
+        checkpoint-and-return branch (the signal may reach one rank only)."""
+        if is_dist():
+            flag = torch.tensor([int(self._preempt_requested)],
+                                device=collective_device())
+            torch.distributed.all_reduce(
+                flag, op=torch.distributed.ReduceOp.MAX)
+            self._preempt_requested = bool(flag.item())
+        return self._preempt_requested
 
     # -- training loop (trn_utils.py:583-628,788-867) ---------------------------
     def _profiler(self):
@@ -266,7 +343,7 @@ class Learner:
             if pending is not None:
                 consume(*pending)
             pending = (loss, self.num_it)
-            if self._preempt_requested:
+            if self._preempt_requested and not is_dist():
                 self.logger.info("preemption requested; stopping epoch at it "
                                  "%d", self.num_it)
                 break
@@ -297,6 +374,9 @@ class Learner:
                 out_acc.update(acc)
         finally:
             self.model.train(was_training)
+        # rank 0 alone scored the merged predictions (the others hold
+        # zeros); its float64 values, on every rank
+        out_loss, out_acc = broadcast_object((out_loss, out_acc))
         if write_to_file:
             keys = ["epochs"] + list(out_loss) + list(out_acc)
             vals = [str(self.num_epoch)] + [
@@ -315,14 +395,14 @@ class Learner:
         self.update_log_file("  ".join(["epochs", "trn_loss", "val_loss"]
                                        + list(met_keys)))
         st_time = time.time()
-        tracker = Tracker(self.cfg, self.uid)
+        tracker = Tracker(self.cfg, self.uid, enabled=self.is_main)
         tracker.log_params(CfgProcessor.cfg_to_flat_dct(self.cfg))
         restore_sig = self._install_preempt_handler()
         try:
             for _ in range(epochs):
                 ep_start = time.time()
                 trn_loss = self.train_epoch(smoother)
-                if self._preempt_requested:
+                if self._sync_preempt_flag():
                     # the full state to the preempt file (never over the
                     # best model), so that re-running the uid resumes it
                     self.save_model_dict(self.preempt_file)
@@ -393,25 +473,35 @@ class Learner:
 
     # -- checkpointing (trn_utils.py:631-749) -----------------------------------
     def save_model_dict(self, path: Optional[Path] = None):
+        """Every rank calls it (the ranks' dropout generator states are
+        gathered); rank 0 writes; every rank returns once the file is in
+        place."""
         path = Path(path) if path else self.model_file
-        model_state = {k: v.detach().cpu()
-                       for k, v in self.model.state_dict().items()}
-        opt_state = (self.optimizer.state_dict()
-                     if self.optimizer is not None else None)
-        meta = {
-            "num_it": self.num_it,
-            "num_epoch": self.num_epoch,
-            "cfgtxt": json.dumps(self.cfg.to_dict()),
-            "best_met": self.best_met,
-            "scheduler_state_dict": {"plateau_wait": self.plateau_wait,
-                                     "lr": self._lr},
-            "dropout_rng": self.dropout_gen.get_state(),
-        }
-        self.ckpt_backend.save(path, model_state, opt_state, meta)
+        rng_by_rank = all_gather_object(self.dropout_gen.get_state())
+        if self.is_main:
+            model_state = {k: v.detach().cpu()
+                           for k, v in self.model.state_dict().items()}
+            opt_state = (self.optimizer.state_dict()
+                         if self.optimizer is not None else None)
+            meta = {
+                "num_it": self.num_it,
+                "num_epoch": self.num_epoch,
+                "cfgtxt": json.dumps(self.cfg.to_dict()),
+                "best_met": self.best_met,
+                "scheduler_state_dict": {"plateau_wait": self.plateau_wait,
+                                         "lr": self._lr},
+                "dropout_rng": rng_by_rank[0],
+                "world_size": self.world_size,
+            }
+            if self.world_size > 1:
+                meta["dropout_rng_by_rank"] = rng_by_rank
+            self.ckpt_backend.save(path, model_state, opt_state, meta)
         if self._stale_preempt is not None and path == self.model_file:
             # a newer checkpoint now lies where resume reads
             stale, self._stale_preempt = self._stale_preempt, None
-            self.ckpt_backend.delete(stale)
+            if self.is_main:
+                self.ckpt_backend.delete(stale)
+        synchronize()
 
     def load_model_dict(self, resume_path: str, load_opt: bool = False):
         loaded = self.ckpt_backend.load(resume_path)
@@ -419,13 +509,21 @@ class Learner:
             self.logger.info("no checkpoint at %s; starting fresh",
                              resume_path)
             return
-        self.model.load_state_dict(loaded["model"], strict=True)
         meta = loaded["meta"]
+        saved_world = int(meta.get("world_size", 1))
+        if saved_world != self.world_size:
+            raise RuntimeError(
+                f"{resume_path} was written by {saved_world} process(es), "
+                f"this run has {self.world_size}: resume on {saved_world} "
+                "(resizing a run is not ported: ROADMAP.md, Queue 1 item 6)")
+        self.model.load_state_dict(loaded["model"], strict=True)
         self.num_it = meta.get("num_it", 0)
         self.num_epoch = meta.get("num_epoch", 0)
         self.best_met = meta.get("best_met", None)
-        if meta.get("dropout_rng") is not None:
-            self.dropout_gen.set_state(meta["dropout_rng"])
+        rng = (meta["dropout_rng_by_rank"][self.rank]
+               if self.world_size > 1 else meta.get("dropout_rng"))
+        if rng is not None:
+            self.dropout_gen.set_state(rng)
         if load_opt and self.ckpt_backend.has_opt(loaded):
             sched = meta.get("scheduler_state_dict") or {}
             self.plateau_wait = int(sched.get("plateau_wait", 0))
