@@ -162,9 +162,38 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (``vidsitu_tpu_torch.extract.main``: phase 3's 8 files, each within
    FEATURE_RTOL). Each rank sets the kernels' counts to 0 before its entry
    point, reads them after it, and then holds each kernel of its path
-   against the plain version once at its own shapes.
+   against the plain version once at its own shapes;
+26. ``python -m vidsitu_tpu_torch.verify_release --fit --device=cuda`` in
+   a subprocess, at the module's defaults (2 epochs, train.seed 42): the
+   training lifecycle of ``vb/sf_base``, ``vb_arg/sfpret_txe_txd_vbarg``
+   and ``evrel/rob_evrel`` at the JAX module's tiny dims (epochs,
+   validation, the best checkpoint, a final validation writing
+   ``valid_0.pkl``, resume by uid, one more epoch): every task ``[ok]``, rc
+   0, each task's loss drops (the first batch under the first step's
+   masks), its pickle exists, its metrics are finite; the receipt printed. No kernel lies on this
+   path (SlowFast has no non-local block; SRL validates on the ancestry
+   route);
+27. the release checks at full width on phase 17's 224 px tree and its
+   vocab dirs: ``train_step_check`` of ``vb/sf_base`` (SlowFast R50 8x8),
+   ``vb_arg/tx_only``, ``vb_arg/sfpret_txe_txd_vbarg`` (d 1024, features
+   2048) and ``evrel/rob_evrel`` (roberta-base widths), each ``[ok]`` with
+   its step's ms and peak GiB; then ``main --weights`` on a SFBase .pth in
+   PySlowFast's layout made from the port's seeded R50 model (``[ok]``, and
+   loaded back equal to it) beside an unrecognised .pt (``[skip]``);
+28. a resize with the kernels: phase 17's I3D-NL R50 fit in float32
+   (``nl_attn_fwd`` / ``nl_attn_bwd``), epoch 1 on 2 gloo ranks on cuda:0,
+   saved; epoch 2 resumed from it on one NCCL rank, twice; against a
+   straight 2-epoch run in this process: the epoch-2 loss within
+   ELASTIC_RTOL, the parameters and the statistics each within
+   ELASTIC_DRIFT of the epoch's update, 20 forward and 10 backward
+   launches an epoch in every run and rank, the txt log's resize line, and
+   the second resume bitwise equal to the first (deterministic algorithms
+   in those runs). Two controls resume the same checkpoint in this process
+   the wrong way (Adam's state left out; another data order, train.seed
+   43): each must part from the straight run by more than ELASTIC_RTOL and
+   ELASTIC_DRIFT.
 
-Phases 1-23 run as before, at the same depth and repeats. A child that
+Phases 1-25 run as before, at the same depth and repeats. A child that
 fails, a launch past DP_TIMEOUT_S or a disagreement fails the smoke.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
@@ -1963,9 +1992,9 @@ def child_extract(spec, dev):
     return {}
 
 
-def child_checks(task, dev, rank):
+def child_checks(task, dev, rank, dtype=torch.bfloat16):
     """Each kernel of this task's path against its plain version once, at
-    this rank's shapes (bf16; launches not counted)."""
+    this rank's shapes and the run's dtype (launches not counted)."""
     from vidsitu_tpu_torch.ops import attention as A
     from vidsitu_tpu_torch.ops import beam_gather as B
 
@@ -1976,16 +2005,16 @@ def child_checks(task, dev, rank):
         # extraction: one dispatch of clip_batch clips
         b = 5 * VB_BS // 2 if task == "fit" else 32
         for name, (sq, sk, d) in (("s3", S3), ("s4", S4)):
-            q, k, v = seeded_qkv(rng, b, sq, sk, d, torch.bfloat16, dev)
+            q, k, v = seeded_qkv(rng, b, sq, sk, d, dtype, dev)
             scale = d ** -0.5
             out, lse = A.fused_attention(q, k, v, "softmax", scale,
                                          with_lse=True)
             ref = A.attention_reference(q, k, v, "softmax", scale)
             err = (out.float() - ref.float()).abs().max().item()
-            assert err <= attn_limit(torch.bfloat16, ref), (name, err)
-            errs[f"{A.kernel_entry(torch.bfloat16, d)} {name} B={b}"] = err
+            assert err <= attn_limit(dtype, ref), (name, err)
+            errs[f"{A.kernel_entry(dtype, d)} {name} B={b}"] = err
             if task == "fit":
-                do = seeded_qkv(rng, b, sq, sq, d, torch.bfloat16, dev)[0]
+                do = seeded_qkv(rng, b, sq, sq, d, dtype, dev)[0]
                 got = A.fused_attention_backward(q, k, v, out, do, lse,
                                                  "softmax", scale)
                 want = A.attention_backward_reference(q, k, v, out, do,
@@ -1993,9 +2022,9 @@ def child_checks(task, dev, rank):
                 e = 0.0
                 for g, r in zip(got, want):
                     eg = (g.float() - r.float()).abs().max().item()
-                    assert eg <= grad_limit(torch.bfloat16, r), (name, eg)
+                    assert eg <= grad_limit(dtype, r), (name, eg)
                     e = max(e, eg)
-                errs[f"{A.bwd_kernel_entry(torch.bfloat16, d)} {name} "
+                errs[f"{A.bwd_kernel_entry(dtype, d)} {name} "
                      f"B={b}"] = e
     else:
         gen = torch.Generator(device=dev).manual_seed(24 + rank)
@@ -2027,20 +2056,25 @@ def dist_child(task, spec_path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = False
     spec = json.loads(Path(spec_path).read_text())
+    dtype = getattr(torch, spec.get("dtype", "bfloat16"))
     dev = init_distributed(spec["device"], spec["backend"])
     rank, world = C.get_rank(), C.get_world_size()
     for name in ("nonlocal_attn", "beam_gather"):  # built by the parent
         assert _build.library_path(name).is_file(), name
+    kind = "fit" if task.startswith("elastic") else task
     A.reset_launches()
     B.LAUNCHES = 0
     t0 = time.perf_counter()
-    res = {"fit": child_fit, "srl": child_srl,
-           "extract": child_extract}[task](spec, dev)
+    # phase 28 repeats a run bitwise
+    with (deterministic_algorithms() if spec.get("deterministic")
+          else contextlib.nullcontext()):
+        res = {"fit": child_fit, "srl": child_srl,
+               "extract": child_extract}[kind](spec, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**{k: v for k, v in A.LAUNCHES_BY_ENTRY.items() if v},
                 "beam_gather_rows": B.LAUNCHES}
-    checks = child_checks(task, dev, rank)
+    checks = child_checks(kind, dev, rank, dtype)
     out = {"task": task, "rank": rank, "world": world,
            "local_rank": int(os.environ["LOCAL_RANK"]), "device": str(dev),
            "backend": torch.distributed.get_backend(), "wall_s": wall,
@@ -2204,6 +2238,326 @@ def phase_dp_two_ranks(vb_paths, vb_root, main_paths, main_root, feats_dir,
             "walls": {"fit": fit_wall, "srl": srl_wall, "extract": ext_wall}}
 
 
+# -- the release surfaces and a resize (phases 26-28) ----------------------
+FIT_TIMEOUT_S = 600  # phase 26's subprocess: three tiny fits on the card
+FIT_EPOCHS = 2  # verify_release's default --fit_epochs, which phase 26 takes
+STEP_MODELS = (("vb", "sf_base", None),
+               ("vb_arg", "tx_only", None),
+               ("vb_arg", "sfpret_txe_txd_vbarg", "i3d_synth"),
+               ("evrel", "rob_evrel", None))
+# phase 28: the epoch-2 loss, relative; and the resized run's parameters and
+# its BatchNorm statistics against the straight run's, each over the whole
+# model, relative to how far the straight run's epoch 2 moved them. In
+# float32 the 2-rank and 1-process runs differ by rounding (the BatchNorm
+# sums and the gradients add in other orders), which Adam turns into steps
+# that differ by up to lr where a gradient is near zero (the non-local
+# biases part by 2.25x of their largest value). On the H100 the sound resume
+# read 1.11e-6 / 4.45e-2 / 1.79e-4; resumes without Adam's state or with
+# another data order (the controls) at least 2.67e-3 / 0.491 / 2.56e-3. Each
+# limit lies near the geometric middle, 3x or more from either side.
+ELASTIC_RTOL = 1e-4
+ELASTIC_DRIFT = {"params": 0.15, "stats": 7e-4}
+
+
+def phase_fit_cli(root):
+    """Phase 26: ``python -m vidsitu_tpu_torch.verify_release --fit
+    --device=cuda`` in a subprocess, at the module's defaults: the training
+    lifecycle of the three tasks at the JAX module's tiny dims. Every task
+    ``[ok]``, rc 0; from
+    the receipt, each task's loss drops, its resume epoch is at least 1
+    (the check itself holds it to the best epoch), its prediction pickle
+    exists and every metric is finite."""
+    work = Path(root) / "fit"
+    logf = Path(root) / "fit.log"
+    cmd = [sys.executable, "-m", "vidsitu_tpu_torch.verify_release", "--fit",
+           "--device=cuda", f"--fit_dir={work}"]
+    t0 = time.perf_counter()
+    with open(logf, "w") as f:
+        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                            cwd=str(REPO), timeout=FIT_TIMEOUT_S).returncode
+    wall = time.perf_counter() - t0
+    text = logf.read_text(errors="replace")
+    lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+    receipt = json.loads(text.split("FIT_RECEIPT ", 1)[1].splitlines()[0]) \
+        if "FIT_RECEIPT " in text else None
+    for ln in lines:
+        log(f"[26 fit] {ln}")
+    if rc != 0 or receipt is None:
+        log(text[-6000:])
+        raise RuntimeError(f"verify_release --fit: rc {rc} after {wall:.1f} s")
+    assert [ln.split("]", 1)[0] + "]" for ln in lines] == ["[ok]"] * 3, lines
+    from vidsitu_tpu_torch.verify_release import FIT_TASKS
+
+    assert [(t["task"], t["mdl"]) for t in receipt["tasks"]] == list(
+        FIT_TASKS) and receipt["epochs"] == FIT_EPOCHS, receipt
+    assert receipt["platform"] == "gpu" and receipt["device"] == (
+        torch.cuda.get_device_name(0)), receipt
+    for t in receipt["tasks"]:
+        assert t["loss_drop"] > 0 and t["resume_epoch"] >= 1, t
+        assert Path(t["pred_pkl"]).is_file(), t["pred_pkl"]
+        assert all(np.isfinite(v) for v in t["val_metrics"].values()), t
+        log(f"[26 fit] {t['task']}/{t['mdl']}: train loss {t['trn_loss']}, "
+            f"resumed at epoch {t['resume_epoch']}, continued "
+            f"{t['continued_loss']}, metrics {t['val_metrics']}, wall "
+            f"{t['wall_s']} s")
+    log(f"[26 fit] receipt {json.dumps(receipt)}; subprocess wall "
+        f"{wall:.1f} s")
+    return {"wall_s": wall, "receipt": receipt}
+
+
+def phase_release_full_width(paths, root):
+    """Phase 27: ``train_step_check`` at the config's own widths on a
+    synthetic tree with 224 px frames (phase 17's), its vocab dirs as the
+    release's converted ones: SlowFast R50 8x8 (``vb/sf_base``, bf16),
+    ``vb_arg/tx_only``, ``vb_arg/sfpret_txe_txd_vbarg`` (d 1024, features
+    2048) and ``evrel/rob_evrel`` (roberta-base widths), each ``[ok]``,
+    with the step's ms and peak GiB; then ``--weights`` through ``main`` on
+    a SFBase .pth in PySlowFast's layout made from the port's seeded R50
+    model (``[ok]``, and loaded back equal to it) and an unrecognised .pt
+    (``[skip]``)."""
+    import io
+
+    from vidsitu_tpu_torch import verify_release as VR
+    from vidsitu_tpu_torch.convert.from_flax import (
+        flax_to_state_dict,
+        seeded_variables,
+    )
+    from vidsitu_tpu_torch.convert.slowfast_torch import (
+        convert_sfbase_checkpoint,
+    )
+    from vidsitu_tpu_torch.convert.to_pyslowfast import pysf_state_dict
+    from vidsitu_tpu_torch.data import build_comm
+    from vidsitu_tpu_torch.models.selector import build_model
+
+    data = Path(paths["ds.vsitu.split_files_lb.train"]).parents[2]
+    vocab_dirs = {
+        "verb": paths["ds.vsitu.vocab_files.verb_id_vocab"],
+        "gpt2": paths["ds.vsitu.vocab_files.new_gpt2_vb_arg_vocab"],
+        "roberta": paths["ds.vsitu.vocab_files.roberta_vocab"]}
+    rep = VR.Report()
+    steps = {}
+    for task, mdl, feats in STEP_MODELS:
+        res = VR.train_step_check(data, vocab_dirs, task, mdl, rep, feats,
+                                  device="cuda")
+        torch.cuda.empty_cache()
+        if res is None:
+            raise RuntimeError(f"train step[{task}/{mdl}]: {rep.failed}")
+        steps[f"{task}/{mdl}"] = res
+        log(f"[27 release] train step[{task}/{mdl}] at the config's widths: "
+            f"loss {res['loss']!r}, {res['moved']}/{res['n_params']} tensors "
+            f"moved, {res['ms']:.1f} ms (the first step), peak "
+            f"{res['peak_gib']:.2f} GiB")
+    assert not rep.failed and len(rep.passed) == len(STEP_MODELS), rep.failed
+
+    wdir = Path(root) / "weights"
+    wdir.mkdir()
+    cfg = VR._release_cfg(data, vocab_dirs, "vb", "sf_base")
+    model = build_model(cfg, build_comm(cfg))
+    model.load_state_dict(flax_to_state_dict(seeded_variables(model, 27)),
+                          strict=True)
+    sd = pysf_state_dict(model.state_dict())
+    name = "vb_slow_fast_nl_r50_8x8_model.pth"
+    torch.save({"model_state_dict": sd, "num_it": 7}, wdir / name)
+    torch.save({"mystery.weight": torch.zeros(3)}, wdir / "unknown.pt")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = VR.main(["--weights", str(wdir), "--device=cuda"])
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[")]
+    for ln in lines:
+        log(f"[27 release] {ln}")
+    assert rc == 0 and sorted(ln.split(":", 1)[0] for ln in lines) == [
+        f"[ok]   weights[{name}]", "[skip] weights[unknown.pt]"], lines
+    loaded = VR.load_video_tree(convert_sfbase_checkpoint(
+        {k: v.numpy() for k, v in sd.items()}, "slowfast", strict=True),
+        "slowfast").state_dict()
+    want = model.state_dict()
+    assert loaded.keys() == want.keys() and all(
+        torch.equal(loaded[k], want[k]) for k in want
+        if not k.endswith("num_batches_tracked"))
+    log(f"[27 release] --weights: {len(sd)} PySlowFast tensors of the seeded "
+        f"R50 SFBase converted and loaded back equal to the model; "
+        f"{wall:.1f} s")
+    return {"steps": steps, "weights_wall_s": wall}
+
+
+def ckpt_leaves(path):
+    return torch.load(path, map_location="cpu",
+                      weights_only=True)["model_state_dict"]
+
+
+def drift(got, want, new, old, part):
+    """||got - want|| over the parameters (``part`` "params") or the
+    BatchNorm statistics ("stats"), relative to the update ||new - old||;
+    and the five leaves whose largest difference is the largest part of the
+    leaf's largest value."""
+    keys = [k for k, v in want.items() if v.is_floating_point()
+            and k.endswith(("running_mean", "running_var")) == (
+                part == "stats")]
+    num = sum(float((got[k].double() - want[k].double()).square().sum())
+              for k in keys)
+    den = sum(float((new[k].double() - old[k].double()).square().sum())
+              for k in keys)
+    leaves = sorted(((k, float((got[k] - want[k]).abs().max())
+                      / max(float(want[k].abs().max()), 1e-30))
+                     for k in keys), key=lambda kv: -kv[1])
+    return math.sqrt(num / den), leaves[:5]
+
+
+def phase_elastic(paths, root, p17):
+    """Phase 28: resume on another number of processes, with the kernels.
+    Phase 17's I3D-NL R50 fit in float32 (the nl_attn_fwd / nl_attn_bwd
+    entries): 2 gloo ranks on cuda:0 fit epoch 1 and save; one NCCL rank
+    resumes that checkpoint for epoch 2; against a straight 2-epoch run in
+    this process. The epoch-2 loss within ELASTIC_RTOL, the parameters and
+    the statistics each within ELASTIC_DRIFT of the epoch's update; 20
+    forward and 10 backward launches an epoch in every run; a second resume
+    on 1 rank bitwise equal to the first; two wrong resumes (controls)
+    outside every limit."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.ops import attention as A
+
+    f32 = ("--train.dtype=float32", "--run_final_val=False")
+    uid = "chip_smoke_vb"
+    fwd = A.kernel_entry(torch.float32, 256)
+    bwd = A.bwd_kernel_entry(torch.float32, 256)
+    assert (fwd, bwd) == (V1_ENTRY, BWD_V1_ENTRY)
+    steps, eval_batches = 2, -(-8 // VB_BS)
+    per_epoch = (NL_BLOCKS * (steps + eval_batches), NL_BLOCKS * steps)
+    walls, launches = {}, {}
+
+    two, walls["save_2rank"] = torchrun("elastic_save", DP_RANKS, {
+        "device": "cuda:0", "backend": "gloo", "deterministic": True,
+        "dtype": "float32", "argv": vb_train_args(
+            paths, root, "--train.epochs=1", *f32,
+            f"--misc.tmp_path={root / 'tmp_el2'}", "--device=cuda:0",
+            "--dist_backend=gloo")}, root)
+    ckpt = root / "tmp_el2" / "model_epochs" / uid / "mdl_ep_1.ckpt"
+    launches["save_2rank"] = [(r["launches"].get(fwd, 0),
+                               r["launches"].get(bwd, 0)) for r in two]
+    resumed = []
+    for tag in ("resume", "resume_again"):
+        res, walls[tag] = torchrun(f"elastic_{tag}", 1, {
+            "device": "cuda", "backend": "nccl", "deterministic": True,
+            "dtype": "float32", "argv": vb_train_args(
+                paths, root, "--train.epochs=1", *f32, "--train.resume=True",
+                f"--train.resume_path={ckpt}",
+                f"--misc.tmp_path={root / ('tmp_el1_' + tag)}",
+                "--dist_backend=nccl")}, root)
+        launches[tag] = [(r["launches"].get(fwd, 0),
+                          r["launches"].get(bwd, 0)) for r in res]
+        resumed.append((res[0], root / f"tmp_el1_{tag}" / "model_epochs"
+                        / uid / "mdl_ep_2.ckpt"))
+    A.reset_launches()
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        straight = port_main.main(vb_train_args(
+            paths, root, "--train.epochs=2", *f32,
+            f"--misc.tmp_path={root / 'tmp_el_straight'}"))
+    walls["straight_1proc"] = time.perf_counter() - t0
+    launches["straight_1proc"] = [(A.LAUNCHES_BY_ENTRY[fwd],
+                                   A.LAUNCHES_BY_ENTRY[bwd])]
+    s_rows = tracker_rows(straight["cfg"])
+    s_dir = straight["learner"].model_epoch_dir
+    s_sd, s_sd1 = (ckpt_leaves(s_dir / f"mdl_ep_{e}.ckpt") for e in (2, 1))
+    del straight
+    torch.cuda.empty_cache()
+
+    # controls: the 2-rank checkpoint resumed the wrong way in this process,
+    # without Adam's state (a resume that does not load the optimizer), and
+    # with another data order for epoch 2 (the sampler's seed)
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    payload["optimizer_state_dict"] = None
+    no_adam = root / "tmp_el2" / "no_adam.ckpt"
+    torch.save(payload, no_adam)
+    controls = {}
+    for tag, path, extra in (("no_adam", no_adam, ()),
+                             ("other_order", ckpt, ("--train.seed=43",))):
+        with deterministic_algorithms():
+            ctl = port_main.main(vb_train_args(
+                paths, root, "--train.epochs=1", *f32, "--train.resume=True",
+                f"--train.resume_path={path}", *extra,
+                f"--misc.tmp_path={root / ('tmp_ctl_' + tag)}"))
+        c_loss = tracker_rows(ctl["cfg"])[-1]["trn_loss"]
+        c_sd = ckpt_leaves(ctl["learner"].model_epoch_dir / "mdl_ep_2.ckpt")
+        del ctl
+        torch.cuda.empty_cache()
+        controls[tag] = {p: drift(c_sd, s_sd, s_sd, s_sd1, p)[0]
+                         for p in ELASTIC_DRIFT}
+        controls[tag]["loss"] = (abs(c_loss - s_rows[1]["trn_loss"])
+                                 / abs(s_rows[1]["trn_loss"]))
+
+    (r1, path1), (r2, path2) = resumed
+    loss2, want2 = r1["epochs"][-1]["trn_loss"], s_rows[1]["trn_loss"]
+    rel_loss = abs(loss2 - want2) / abs(want2)
+    sd1, sd2 = ckpt_leaves(path1), ckpt_leaves(path2)
+    rel = {p: drift(sd1, s_sd, s_sd, s_sd1, p)[0] for p in ELASTIC_DRIFT}
+    worst = drift(sd1, s_sd, s_sd, s_sd1, "params")[1]
+    rel1 = {p: drift(ckpt_leaves(ckpt), s_sd1, s_sd, s_sd1, p)[0]
+            for p in ELASTIC_DRIFT}
+    bitwise = all(torch.equal(sd1[k], sd2[k]) for k in sd1)
+    log(f"[28 elastic] I3D-NL R50 float32: 2 gloo ranks fit epoch 1 "
+        f"({walls['save_2rank']:.1f} s), 1 NCCL rank resumes it for epoch 2 "
+        f"({walls['resume']:.1f} s; again {walls['resume_again']:.1f} s), "
+        f"straight 2 epochs on 1 process ({walls['straight_1proc']:.1f} s)")
+    log(f"[28 elastic] epoch-2 train loss: resumed {loss2!r}, straight "
+        f"{want2!r} (relative {rel_loss:.2e}, limit {ELASTIC_RTOL:g}); "
+        f"epoch 1: 2 ranks {two[0]['epochs'][0]['trn_loss']!r}, straight "
+        f"{s_rows[0]['trn_loss']!r}; step losses resumed "
+        f"{r1['step_losses']}")
+    log(f"[28 elastic] parameters and statistics after epoch 2, resumed vs "
+        f"straight, of the straight run's epoch-2 update: {rel} (limits "
+        f"{ELASTIC_DRIFT}; after epoch 1, 2 ranks vs 1 process: {rel1}); "
+        f"largest parameter differences of the leaf's largest value "
+        f"{worst}; second resume bitwise equal: {bitwise}")
+    log(f"[28 elastic] controls, resumed the wrong way (the same readings, "
+        f"each above its limit): {controls}")
+    log(f"[28 elastic] launches ({fwd}, {bwd}) by run and rank: {launches} "
+        f"(want {per_epoch} an epoch); kernel vs plain "
+        f"{[r['checks'] for r in two + [r1, r2]]}")
+    assert "resumed a 2-process checkpoint on 1 processes" in (
+        root / "tmp_el1_resume" / "txt_logs" / f"{uid}.txt").read_text()
+    assert launches["save_2rank"] == [per_epoch] * DP_RANKS, launches
+    assert launches["resume"] == launches["resume_again"] == [per_epoch]
+    assert launches["straight_1proc"] == [(2 * per_epoch[0],
+                                           2 * per_epoch[1])], launches
+    assert rel_loss <= ELASTIC_RTOL, (loss2, want2)
+    assert all(rel[p] <= lim for p, lim in ELASTIC_DRIFT.items()), rel
+    limits = {**ELASTIC_DRIFT, "loss": ELASTIC_RTOL}
+    assert all(c[p] > lim for c in controls.values()
+               for p, lim in limits.items()), controls
+    assert bitwise and r1["step_losses"] == r2["step_losses"]
+    return {"walls_s": walls, "launches": launches, "loss_rel_err": rel_loss,
+            "drift": rel, "drift_epoch1": rel1, "worst_leaf": worst[0],
+            "controls": controls, "second_resume_bitwise": bitwise}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms (cuDNN's among them, and the
+    stem's two one-axis pools), warning where an op has none; cuBLAS's
+    workspace set as they require; uninitialised memory left unfilled, as
+    in every other run."""
+    import os
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.utils.deterministic.fill_uninitialized_memory,
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        torch.utils.deterministic.fill_uninitialized_memory = prev[1]
+        if prev[2] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev[2]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2318,6 +2672,13 @@ def main() -> int:
         dp1, dp1_wall = phase_dp_fit_one_rank(vb_paths, vb_root / "dp1", p17)
         dp2 = phase_dp_two_ranks(vb_paths, vb_root, main_paths, main_root,
                                  feats_dir, p17, srl_preds)
+        # the release surfaces; then a resize, each run's counts set to 0
+        # just before its entry point (dist_child; in process:
+        # phase_elastic)
+        torch.cuda.empty_cache()
+        fit_cli = phase_fit_cli(vb_root)
+        release = phase_release_full_width(vb_paths, vb_root)
+        elastic = phase_elastic(vb_paths, vb_root, p17)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -2381,7 +2742,13 @@ def main() -> int:
                    launches_dp={k: v[0] for k, v in dp[fwd_entry].items()},
                    max_abs_err_dp={k: v[1] for k, v in
                                    dp[fwd_entry].items()},
-                   dp_walls_s=dp_walls),
+                   dp_walls_s=dp_walls,
+                   launches_elastic={k: [n for n, _ in v] for k, v in
+                                     elastic["launches"].items()},
+                   elastic=elastic, fit_cli_wall_s=fit_cli["wall_s"],
+                   release_steps={k: {m: v[m] for m in ("loss", "ms",
+                                                        "peak_gib")}
+                                  for k, v in release["steps"].items()}),
         kernel_row("beam_gather_rows", "beam_gather.cu",
                    "benchmarks/probe_beam_gather.py:62", gather_launches,
                    gather_err, gather_times[0], gather_times[1],
@@ -2448,7 +2815,9 @@ def main() -> int:
                    bench_vbtrain=[r["value"] for r in bench_train],
                    launches_dp={k: v[0] for k, v in dp[bwd_entry].items()},
                    max_abs_err_dp={k: v[1] for k, v in
-                                   dp[bwd_entry].items()}),
+                                   dp[bwd_entry].items()},
+                   launches_elastic={k: [n for _, n in v] for k, v in
+                                     elastic["launches"].items()}),
         kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
                    slice_launches["staged_copy"], 0.0, copy_ms["staged"],
                    copy_ms["clone"], *copy_bound, copy_ms["clone"]),

@@ -80,11 +80,19 @@ def test_resumed_epoch_equals_straight_fit_bitwise(env):
     for r in range(2):
         assert torch.equal(resumed["dropout_rng_by_rank"][r], rngs[r])
         assert torch.equal(outs[r]["runs"][0]["dropout_rng"], rngs[r])
-    # one process cannot resume what two wrote
+    # one process resumes what two wrote: the weights, the counters and
+    # rank 0's dropout generator, and says so in the log
     cfg = get_cfg_with_overrides("two", **{
         **kv, "train.resume": True, "train.resume_path": str(ep2)})
-    with pytest.raises(RuntimeError, match="2 process"):
-        build_learner(cfg, "two", "cpu")
+    one = build_learner(cfg, "two", "cpu")
+    saved = torch.load(ep2, weights_only=True)
+    assert (one.num_epoch, one.num_it) == (2, 4)
+    for k, v in one.model.state_dict().items():
+        assert torch.equal(v, saved["model_state_dict"][k]), k
+    assert torch.equal(one.dropout_gen.get_state(),
+                       saved["dropout_rng_by_rank"][0])
+    assert "resumed a 2-process checkpoint on 1 processes" in (
+        one.txt_log_file.read_text())
 
 
 def test_sigterm_to_one_rank_saves_once_and_both_exit_zero(env):

@@ -8,7 +8,6 @@ arrays (atol 1e-4, float32 on both sides). The backbone is I3D-NL at depth
 26 with non-local blocks moved to block 0 of s3 and s4, so they exist.
 """
 
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -26,6 +25,7 @@ from vidsitu_tpu.models.vb_models import build_feat_extractor as jax_build
 from vidsitu_tpu.utils.config import get_cfg_with_overrides
 from vidsitu_tpu_torch import extract as port_extract
 from vidsitu_tpu_torch.convert.from_flax import flax_to_state_dict
+from vidsitu_tpu_torch.convert.to_pyslowfast import pysf_state_dict
 
 from .test_torch_video_backbone import init_shapes, seeded_tree
 
@@ -39,35 +39,6 @@ TINY = {"mdl.sf_mdl_name": "i3d_r50_nl_8x8", "vid_mdl.resnet.depth": 26,
         "vid_mdl.sampling_rate": 2,
         "vid_mdl.nl.location": "[[[]], [[0]], [[0]], [[]]]",
         "train.dtype": "float32"}
-
-
-def pyslowfast_names(sd):
-    """The port's single-pathway state_dict under PySlowFast's module names,
-    as an SFBase checkpoint holds them (``sf_mdl.`` prefix)."""
-    rules = [
-        (r"^s1\.conv\.conv\.", "s1.pathway0_stem.conv."),
-        (r"^s1\.conv\.bn\.", "s1.pathway0_stem.bn."),
-        (r"^s(\d)\.block_(\d+)\.proj\.conv\.", r"s\1.pathway0_res\2.branch1."),
-        (r"^s(\d)\.block_(\d+)\.proj\.bn\.", r"s\1.pathway0_res\2.branch1_bn."),
-        (r"^s(\d)\.block_(\d+)\.([abc])\.conv\.",
-         r"s\1.pathway0_res\2.branch2.\3."),
-        (r"^s(\d)\.block_(\d+)\.([abc])\.bn\.",
-         r"s\1.pathway0_res\2.branch2.\3_bn."),
-        (r"^s(\d)\.nl_(\d+)\.(theta|phi|g|out)\.",
-         r"s\1.pathway0_nonlocal\2.conv_\3."),
-        (r"^s(\d)\.nl_(\d+)\.bn\.", r"s\1.pathway0_nonlocal\2.bn."),
-    ]
-    out = {}
-    for k, v in sd.items():
-        k = k[len("backbone."):]
-        for pat, rep in rules:
-            k, n = re.subn(pat, rep, k)
-            if n:
-                break
-        else:
-            raise AssertionError(k)
-        out["sf_mdl." + k] = v
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +68,7 @@ def test_extract_matches_jax(env, tmp_path):
         out_dir=str(out_t), batch_size=3, clip_batch=7, device="cpu")
     assert counts_t == counts_j == {"valid": 4}
     ckpt = tmp_path / "sfbase.pth"
-    torch.save(pyslowfast_names(state_dict), ckpt)
+    torch.save(pysf_state_dict(state_dict, prefix=""), ckpt)
     port_extract.main(["--device=cpu", f"--ckpt={ckpt}", "--split=valid",
                        f"--out_dir={out_c}", "--batch_size=3",
                        "--clip_batch=7", "--num_threads=0", *overrides])

@@ -306,14 +306,14 @@ def test_sf_pretrained_checkpoint_loads_into_the_backbone(env, tmp_path):
     """mdl.load_sf_pretrained: a PySlowFast-named SFBase checkpoint goes
     through the port's converter into the backbone; the head keeps its
     initial values."""
-    from tests.test_torch_extract import pyslowfast_names
     from vidsitu_tpu_torch.convert.from_flax import seeded_variables
+    from vidsitu_tpu_torch.convert.to_pyslowfast import pysf_state_dict
 
     fresh = build_learner(mk(env, "pret0"), "pret0", "cpu").model
     seeded = {k: v for k, v in flax_to_state_dict(
         seeded_variables(fresh, 9)).items() if k.startswith("backbone.")}
     ckpt = tmp_path / "sfbase.pth"
-    torch.save(pyslowfast_names(seeded), ckpt)
+    torch.save(pysf_state_dict(seeded, prefix=""), ckpt)
     model = build_learner(mk(env, "pret1", **{
         "mdl.load_sf_pretrained": True,
         "mdl.sf_pretrained_path": str(ckpt)}), "pret1", "cpu").model

@@ -36,13 +36,18 @@ COPIED = {
     "convert": ["tracking.py", "hf_torch.py", "slowfast_torch.py",
                 "caffe2.py"],
     "train": ["tracking.py"],
+    # top-level modules of the package
+    ".": ["prep.py"],
 }
 
 # files allowed to differ from their original, with the most changed lines
 # (added plus removed) and a word the changed lines must hold: the port's
-# converter walks non-local modules by block index; three comments are
-# reworded (one or two lines each, no code)
+# converter walks non-local modules by block index; prep's clip check takes
+# a malformed container as invalid (the original lets count_frames'
+# IndexError / KeyError / ValueError escape download_clip); three comments
+# are reworded (one or two lines each, no code)
 ALLOWED_DIFFS = {
+    "./prep.py": (7, "malformed"),
     "convert/slowfast_torch.py": (16, "nonlocal"),
     "data/comm.py": (2, "Shared task metadata"),
     "data/frames.py": (4, "writers"),
@@ -178,9 +183,11 @@ def test_port_runs_with_the_jax_package_blocked():
 
 
 # the JAX modules that each port module re-implements (no copy: they import
-# jax or flax), for the language models of the SRL and evrel slice and the
-# several-process helpers, with the name the original imports
+# jax or flax), for the language models of the SRL and evrel slice, the
+# several-process helpers and the release harness, with the name the
+# original imports
 REIMPLEMENTED = {
+    "verify_release.py": ("verify_release.py", "jax"),
     "models/roberta.py": ("models/roberta.py", "flax"),
     "models/evrel_models.py": ("models/evrel_models.py", "flax"),
     "models/lang_utils.py": ("models/lang_utils.py", "flax"),

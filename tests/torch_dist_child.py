@@ -13,8 +13,10 @@ process and hand over the port's inputs as files.
 Modes:
   * ``steps``: for each case file (``torch.save`` of the model, its config
     overrides and each step's batch for every rank), a ``Learner`` on this
-    rank's batches; the global losses, the gradients the update used, and
-    the state dict after the steps;
+    rank's batches, optionally resuming a checkpoint first and saving one
+    after; the global losses, the gradients the update used, the state dict
+    after the steps and the dropout generator's states; then, for each
+    ``builds`` entry, the error ``build_learner`` raises on its overrides;
   * ``main``: ``vidsitu_tpu_torch.main.main(argv)`` for each argv in turn,
     in the one process group; optionally SIGTERM sent by one rank to itself
     when its train step ``kill_at_it`` starts;
@@ -67,39 +69,78 @@ def launch(mode, spec, tmp_path, nproc=2, timeout=240):
             for r in range(nproc)], log
 
 
+def attention_f64(q, k, v, kind, scale):
+    """The plain attention of ``ops.attention.attention_reference`` in the
+    inputs' dtype (that one computes in float32, as the JAX package's); a
+    model that a case file holds may name it, so it lives here."""
+    logits = torch.bmm(q, k.transpose(1, 2))
+    probs = (torch.softmax(logits * scale, dim=-1) if kind == "softmax"
+             else logits / logits.shape[-1])
+    return torch.bmm(probs, v)
+
+
 def to_torch(batch):
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in batch.items()}
 
 
-def mode_steps(spec, rank):
+def run_case(case, rank, tmp):
+    """One case of mode ``steps`` on this rank (also called in the test's
+    own process, rank 0 of one): a ``Learner`` that optionally resumes a
+    checkpoint (``resume``, optimizer included) before its steps and saves
+    one (``save``) after them; every step ticks ``num_it`` as an epoch's
+    steps do."""
     from vidsitu_tpu_torch.train.learner import Learner
     from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
 
+    model = case["model"]
+    cfg = get_cfg_with_overrides("t", **{"misc.tmp_path": tmp,
+                                         **case["cfg"]})
+    learner = Learner("t", cfg, model, None, None, "cpu")
+    learner.prepare_optimizer(case["lr"])
+    rng_loaded = None
+    if case.get("resume"):
+        learner.load_model_dict(case["resume"], load_opt=True)
+        rng_loaded = learner.dropout_gen.get_state()
+    grads = {}
+    step = learner.optimizer.step
+
+    def keep_grads_then_step(step=step, grads=grads, model=model):
+        grads.update({n: (torch.zeros_like(p) if p.grad is None
+                          else p.grad.clone())
+                      for n, p in model.named_parameters()})
+        step()
+
+    learner.optimizer.step = keep_grads_then_step
+    losses = []
+    for per_rank in case["batches"]:
+        losses.append(float(learner.train_step(to_torch(per_rank[rank]))))
+        learner.num_it += 1
+    if case.get("save"):
+        learner.save_model_dict(case["save"])
+    return {"losses": losses, "grads": grads,
+            "state_dict": {k: v.clone() for k, v in
+                           model.state_dict().items()},
+            "num_it": learner.num_it, "rng_loaded": rng_loaded,
+            "rng": learner.dropout_gen.get_state()}
+
+
+def mode_steps(spec, rank):
     out = {}
     for path in spec["cases"]:
         case = torch.load(path, weights_only=False)
-        model = case["model"]
-        cfg = get_cfg_with_overrides("t", **{
-            "misc.tmp_path": spec["tmp"], **case["cfg"]})
-        learner = Learner("t", cfg, model, None, None, "cpu")
-        learner.prepare_optimizer(case["lr"])
-        grads = {}
-        step = learner.optimizer.step
+        out[case["name"]] = run_case(case, rank, spec["tmp"])
+    for name, overrides in spec.get("builds", {}).items():
+        # build_learner on this group: the error it raises, if any
+        from vidsitu_tpu_torch.train.build import build_learner
+        from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
 
-        def keep_grads_then_step(step=step, grads=grads, model=model):
-            grads.update({n: (torch.zeros_like(p) if p.grad is None
-                              else p.grad.clone())
-                          for n, p in model.named_parameters()})
-            step()
-
-        learner.optimizer.step = keep_grads_then_step
-        losses = [float(learner.train_step(to_torch(per_rank[rank])))
-                  for per_rank in case["batches"]]
-        out[case["name"]] = {
-            "losses": losses, "grads": grads,
-            "state_dict": {k: v.clone() for k, v in
-                           model.state_dict().items()}}
+        try:
+            build_learner(get_cfg_with_overrides(name, **overrides), name,
+                          "cpu")
+            out[name] = None
+        except Exception as e:  # noqa: BLE001 - the test reads it
+            out[name] = f"{type(e).__name__}: {e}"
     return out
 
 

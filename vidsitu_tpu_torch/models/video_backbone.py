@@ -27,6 +27,12 @@ SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
     a rename and a transpose (convert/from_flax.py).
   * The JAX package's packed stem conv and packed stem epilogue fill TPU
     lanes; here the stem is a plain Conv3d on the same canonical weight.
+  * Under ``torch.use_deterministic_algorithms`` a CUDA training step
+    repeats bit for bit: the stem's max pool, whose CUDA backward PyTorch
+    names nondeterministic, then runs as two one-axis pools
+    (:func:`repeatable_stem_pool`). They cost the I3D-NL R50 update at 80
+    clips 3.6 % and 2.4 GiB on an H100 (``release_probe stem``), so the
+    one-pass pool stays the default.
 """
 
 from __future__ import annotations
@@ -402,6 +408,19 @@ class ResStage(nn.Sequential):
         super().__init__(mods)
 
 
+def repeatable_stem_pool(x: torch.Tensor) -> torch.Tensor:
+    """The stem's (1, 3, 3) stride (1, 2, 2) max pool (pad (0, 1, 1)) as a
+    pool along W, then one along H: the same values. The backward of
+    PyTorch's CUDA max pool adds the gradients of overlapping windows with
+    atomics, up to four into an element here, in an order that changes from
+    run to run; one-axis windows of 3 at stride 2 overlap in one element,
+    and two additions to zero give the same sum in either order, so this
+    backward repeats bit for bit. Where several elements of a window hold
+    the maximum, the two pools may pass its gradient to another of them."""
+    x = F.max_pool3d(x, (1, 1, 3), stride=(1, 1, 2), padding=(0, 0, 1))
+    return F.max_pool3d(x, (1, 3, 1), stride=(1, 2, 1), padding=(0, 1, 0))
+
+
 class Stem(nn.Module):
     """Stem conv + BN + relu + (1,3,3) s(1,2,2) max pool (pad (0,1,1))."""
 
@@ -419,7 +438,11 @@ class Stem(nn.Module):
         return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pool(self.conv(x))
+        x = self.conv(x)
+        if (x.is_cuda and torch.is_grad_enabled()
+                and torch.are_deterministic_algorithms_enabled()):
+            return repeatable_stem_pool(x)
+        return self.pool(x)
 
 
 class FuseFastToSlow(nn.Module):

@@ -32,10 +32,11 @@ gradients are summed, not averaged, in one flat all-reduce before the
 update (every ``grad_accum``-th step; a parameter without a gradient on
 every rank keeps none). Each rank draws dropout from its own generator,
 seeded from ``(train.seed, rank)``; rank 0 writes the logs, the tracker and
-the checkpoints, which hold every rank's generator state; rank 0's
-validation results reach every rank, so best-metric, plateau and save
-decisions agree; SIGTERM is honoured at the epoch boundary, once any rank
-has seen it (``_sync_preempt_flag``).
+the checkpoints, which hold every rank's generator state (a checkpoint
+resumes on any number of ranks that divides the global batches:
+``load_model_dict``); rank 0's validation results reach every rank, so
+best-metric, plateau and save decisions agree; SIGTERM is honoured at the
+epoch boundary, once any rank has seen it (``_sync_preempt_flag``).
 """
 
 from __future__ import annotations
@@ -87,10 +88,13 @@ def good_format_stats(names, stats) -> str:
     return " ".join(f"{k}: {float(stats.get(k, 0.0)):.4f}" for k in names)
 
 
-def dropout_seed(seed: int, rank: int) -> int:
+def dropout_seed(seed: int, rank: int, num_it: int = 0) -> int:
     """Rank ``rank``'s dropout seed: ``seed`` on rank 0 (a one-process run
-    draws what it drew before), distinct on every other rank."""
-    return int(seed) + (int(rank) << 32)
+    draws what it drew before), distinct on every other rank; ``num_it`` > 0
+    for a rank that joins a resumed run without a saved state, so that it
+    does not repeat the masks a fresh run's rank drew from iteration 0
+    (64 bits, as ``torch.Generator.manual_seed`` takes)."""
+    return (int(seed) + (int(rank) << 32) + (int(num_it) << 48)) % 2 ** 64
 
 
 def batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -504,6 +508,17 @@ class Learner:
         synchronize()
 
     def load_model_dict(self, resume_path: str, load_opt: bool = False):
+        """Restore a checkpoint written by any number of processes: it holds
+        whole tensors (model, Adam's moments, BatchNorm statistics) and the
+        counters, which load as they are. Rank r takes the dropout
+        generator state that rank r saved; a rank the saving run did not
+        have draws from a generator seeded from ``(train.seed, rank,
+        num_it)`` (a one-process checkpoint's state is rank 0's). A resize
+        needs the new number of ranks to divide the global batches, which
+        ``build_learner`` holds. Resumes happen at epoch boundaries, or
+        from a preemption at a step boundary: a checkpoint holds no
+        gradient of a ``train.grad_accum`` cycle in flight (neither does
+        the JAX package's)."""
         loaded = self.ckpt_backend.load(resume_path)
         if loaded is None:
             self.logger.info("no checkpoint at %s; starting fresh",
@@ -511,19 +526,21 @@ class Learner:
             return
         meta = loaded["meta"]
         saved_world = int(meta.get("world_size", 1))
-        if saved_world != self.world_size:
-            raise RuntimeError(
-                f"{resume_path} was written by {saved_world} process(es), "
-                f"this run has {self.world_size}: resume on {saved_world} "
-                "(resizing a run is not ported: ROADMAP.md, Queue 1 item 6)")
         self.model.load_state_dict(loaded["model"], strict=True)
         self.num_it = meta.get("num_it", 0)
         self.num_epoch = meta.get("num_epoch", 0)
         self.best_met = meta.get("best_met", None)
-        rng = (meta["dropout_rng_by_rank"][self.rank]
-               if self.world_size > 1 else meta.get("dropout_rng"))
-        if rng is not None:
-            self.dropout_gen.set_state(rng)
+        rngs = meta.get("dropout_rng_by_rank") or [meta.get("dropout_rng")]
+        if self.rank < len(rngs) and rngs[self.rank] is not None:
+            self.dropout_gen.set_state(rngs[self.rank])
+        else:
+            self.dropout_gen.manual_seed(dropout_seed(
+                self.cfg.train.seed, self.rank, self.num_it))
+        if saved_world != self.world_size:
+            self.update_log_file(
+                f"resumed a {saved_world}-process checkpoint on "
+                f"{self.world_size} processes: each rank's data shard and "
+                "dropout stream differ from the original run's")
         if load_opt and self.ckpt_backend.has_opt(loaded):
             sched = meta.get("scheduler_state_dict") or {}
             self.plateau_wait = int(sched.get("plateau_wait", 0))
