@@ -191,9 +191,35 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    in those runs). Two controls resume the same checkpoint in this process
    the wrong way (Adam's state left out; another data order, train.seed
    43): each must part from the straight run by more than ELASTIC_RTOL and
-   ELASTIC_DRIFT.
+   ELASTIC_DRIFT;
+29. dropout that does not depend on the number of ranks, and a grad_accum
+   cycle carried through a checkpoint: ``sfpret_txe_txd_vbarg`` at full
+   width (d 1024, dropout 0.1, float32 products, global batch 16,
+   ``train.grad_accum=2``). The first step's global loss on 2 gloo ranks on
+   cuda:0 equals one process's within DP_LOSS_RTOL; with the ranks'
+   generators seeded apart (the control) it parts by more. The 2 ranks
+   save after step 3 (a cycle in flight), one process resumes for steps
+   4-6: the parameters within DROP_DRIFT of the straight run's steps 4-6
+   update, the losses within DP_LOSS_RTOL; resumed without the cycle (the
+   control), beyond DROP_DRIFT;
+30. fsdp on the card: one NCCL rank on a (1, 1) ``data`` x ``fsdp`` mesh
+   (gloo does not carry FSDP2's reduce-scatter on CUDA tensors and NCCL
+   refuses two ranks on one card), ``build_learner`` sharding the I3D-NL
+   R50 (``fully_shard`` on its bottlenecks, non-local blocks and root):
+   one update at 80 clips in bf16 against one process's from the same
+   weights (contiguous, as FSDP2 keeps parameters): the loss within
+   DP_BF16_RTOL, the parameters and statistics within ELASTIC_DRIFT of the
+   update; 5 ``nl_attn_fwd_wgmma`` and 5 ``nl_attn_bwd_wgmma`` launches an
+   update; then the fsdp, contiguous and channels-last updates timed in
+   turns, with their peak memory, and the layout a sharded convolution
+   receives;
+31. phase 28's fit under fsdp (one NCCL rank, (1, 1) mesh) saved after
+   epoch 1 through ``ckpt_backend=orbax`` (torch.distributed.checkpoint,
+   generations behind ``LIVE``), epoch 2 resumed on one NCCL rank without
+   fsdp: against phase 28's straight run within phase 28's limits, 20
+   forward and 10 backward launches an epoch in each run.
 
-Phases 1-25 run as before, at the same depth and repeats. A child that
+Phases 1-28 run as before, at the same depth and repeats. A child that
 fails, a launch past DP_TIMEOUT_S or a disagreement fails the smoke.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
@@ -2000,10 +2026,11 @@ def child_checks(task, dev, rank, dtype=torch.bfloat16):
 
     errs = {}
     rng = np.random.default_rng(24 + rank)
-    if task in ("fit", "extract"):
+    if task in ("fit", "extract", "fsdp"):
         # a train step's or an eval batch's clips on this rank: 5 a video;
-        # extraction: one dispatch of clip_batch clips
-        b = 5 * VB_BS // 2 if task == "fit" else 32
+        # extraction: one dispatch of clip_batch clips; phase 30's update
+        b = {"fit": 5 * VB_BS // 2, "extract": 32,
+             "fsdp": 5 * FSDP_VIDEOS}[task]
         for name, (sq, sk, d) in (("s3", S3), ("s4", S4)):
             q, k, v = seeded_qkv(rng, b, sq, sk, d, dtype, dev)
             scale = d ** -0.5
@@ -2013,7 +2040,7 @@ def child_checks(task, dev, rank, dtype=torch.bfloat16):
             err = (out.float() - ref.float()).abs().max().item()
             assert err <= attn_limit(dtype, ref), (name, err)
             errs[f"{A.kernel_entry(dtype, d)} {name} B={b}"] = err
-            if task == "fit":
+            if task in ("fit", "fsdp"):
                 do = seeded_qkv(rng, b, sq, sq, d, dtype, dev)[0]
                 got = A.fused_attention_backward(q, k, v, out, do, lse,
                                                  "softmax", scale)
@@ -2039,7 +2066,7 @@ def child_checks(task, dev, rank, dtype=torch.bfloat16):
 
 
 def dist_child(task, spec_path) -> int:
-    """One rank of a torchrun launch (phases 24-25): join the process
+    """One rank of a torchrun launch (phases 24-25, 28-31): join the process
     group, run ``task`` through the port's entry point with every kernel
     count at 0, then check the task's kernels against their plain versions
     at this rank's shapes; write the rank's JSON result."""
@@ -2068,13 +2095,14 @@ def dist_child(task, spec_path) -> int:
     # phase 28 repeats a run bitwise
     with (deterministic_algorithms() if spec.get("deterministic")
           else contextlib.nullcontext()):
-        res = {"fit": child_fit, "srl": child_srl,
-               "extract": child_extract}[kind](spec, dev)
+        res = {"fit": child_fit, "srl": child_srl, "extract": child_extract,
+               "drop": child_drop, "fsdp": child_fsdp}[kind](spec, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**{k: v for k, v in A.LAUNCHES_BY_ENTRY.items() if v},
                 "beam_gather_rows": B.LAUNCHES}
-    checks = child_checks(kind, dev, rank, dtype)
+    # phase 29's SRL training launches no kernel
+    checks = child_checks(kind, dev, rank, dtype) if kind != "drop" else {}
     out = {"task": task, "rank": rank, "world": world,
            "local_rank": int(os.environ["LOCAL_RANK"]), "device": str(dev),
            "backend": torch.distributed.get_backend(), "wall_s": wall,
@@ -2405,7 +2433,7 @@ def drift(got, want, new, old, part):
     return math.sqrt(num / den), leaves[:5]
 
 
-def phase_elastic(paths, root, p17):
+def phase_elastic(paths, root, p17, keep=None):
     """Phase 28: resume on another number of processes, with the kernels.
     Phase 17's I3D-NL R50 fit in float32 (the nl_attn_fwd / nl_attn_bwd
     entries): 2 gloo ranks on cuda:0 fit epoch 1 and save; one NCCL rank
@@ -2414,7 +2442,8 @@ def phase_elastic(paths, root, p17):
     the statistics each within ELASTIC_DRIFT of the epoch's update; 20
     forward and 10 backward launches an epoch in every run; a second resume
     on 1 rank bitwise equal to the first; two wrong resumes (controls)
-    outside every limit."""
+    outside every limit. ``keep`` takes the straight run's epoch-1 and
+    epoch-2 parameters and its epoch-2 loss (phase 31's reference)."""
     from vidsitu_tpu_torch import main as port_main
     from vidsitu_tpu_torch.ops import attention as A
 
@@ -2461,6 +2490,8 @@ def phase_elastic(paths, root, p17):
     s_rows = tracker_rows(straight["cfg"])
     s_dir = straight["learner"].model_epoch_dir
     s_sd, s_sd1 = (ckpt_leaves(s_dir / f"mdl_ep_{e}.ckpt") for e in (2, 1))
+    if keep is not None:
+        keep.update(s_sd=s_sd, s_sd1=s_sd1, want2=s_rows[1]["trn_loss"])
     del straight
     torch.cuda.empty_cache()
 
@@ -2531,6 +2562,343 @@ def phase_elastic(paths, root, p17):
     return {"walls_s": walls, "launches": launches, "loss_rel_err": rel_loss,
             "drift": rel, "drift_epoch1": rel1, "worst_leaf": worst[0],
             "controls": controls, "second_resume_bitwise": bitwise}
+
+
+# phase 29: 2 gloo ranks against one process, SRL at full width in float32
+# with dropout 0.1. The first step's global loss within DP_LOSS_RTOL (the
+# ranks draw the one-process masks); with the ranks' generators seeded apart
+# (the control) the loss must part by more. A grad_accum=2 cycle saved in
+# flight on 2 ranks after 3 steps and resumed on one process for 3 more:
+# the parameters against 6 straight steps, relative to those steps'
+# last 3-step update (as phase 28's drift), within DROP_DRIFT; the same
+# checkpoint resumed without its cycle (the control) parts by more. On the
+# H100 the sound resume read 6.51e-2 (its largest leaves the attention key
+# biases, whose gradients are zero in exact arithmetic and which Adam turns
+# into steps of lr: the 2-rank sums round otherwise), the control 0.572;
+# the limit lies near their geometric middle, 2.9x from either.
+DROP_BS = 16  # phase 20's train.bs: 8 videos a rank
+DROP_DRIFT = 0.19
+# phase 30: the fsdp update (one NCCL rank on a (1, 1) data x fsdp mesh)
+# against one process's from the same weights, bf16: the loss within
+# DP_BF16_RTOL, the parameters and statistics within ELASTIC_DRIFT of the
+# update
+FSDP_VIDEOS = 16  # 80 clips, phase 18's update
+FSDP_TIMED = 3  # timed updates of each variant, in turns
+
+
+def drop_steps(argv, dev, steps, start=0, resume=None, saves=None,
+               seed_apart=False):
+    """Phase 29's runs: a Learner of ``argv`` (build_learner) takes
+    ``steps`` train steps on this rank's share of the global batches
+    ``start``, ``start + 1``, ... of epoch 0, after resuming ``resume``
+    (optimizer and grad_accum cycle included) when given, saving after step
+    n where ``saves`` names a path for n. ``seed_apart`` seeds each rank's
+    dropout generator from (train.seed + rank): the control."""
+    from itertools import islice
+
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.train.build import build_learner
+    from vidsitu_tpu_torch.train.learner import batch_to_device
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    saves = {int(n): path for n, path in (saves or {}).items()}  # JSON keys
+    uid, overrides, _ = port_main.parse_cli(argv)
+    cfg = get_cfg_with_overrides(uid, **overrides)
+    learner = build_learner(cfg, uid, dev)
+    learner.prepare_optimizer(float(cfg.train.lr))
+    if resume:
+        learner.load_model_dict(resume, load_opt=True)
+    if seed_apart:
+        learner.dropout_gen.manual_seed(int(cfg.train.seed) + learner.rank)
+    losses = []
+    for batch in islice(learner.data.train_dl, start, start + steps):
+        losses.append(float(learner.train_step(
+            batch_to_device(batch, learner.device))))
+        learner.num_it += 1
+        if len(losses) in saves:
+            learner.save_model_dict(saves[len(losses)])
+    out = {"losses": losses, "accum_count": learner._accum_count}
+    del learner
+    torch.cuda.empty_cache()
+    return out
+
+
+def child_drop(spec, dev):
+    return {"runs": [drop_steps(spec["argv"], dev, **run)
+                     for run in spec["runs"]]}
+
+
+def phase_dropout_ranks(root):
+    """Phase 29: dropout that does not depend on the number of ranks, and a
+    grad_accum cycle carried through a checkpoint, on the card at full
+    width (sfpret_txe_txd_vbarg, d 1024, dropout 0.1, float32 products)."""
+    from vidsitu_tpu_torch.data.synth import make_synth_dataset
+
+    paths = make_synth_dataset(root / "data", n_train=6 * DROP_BS,
+                               n_valid=8, n_test=1, seed=37)
+    argv = lang_train_args(
+        "chip_smoke_drop", "vb_arg", "sfpret_txe_txd_vbarg", paths, root,
+        "--train.dtype=float32", "--train.grad_accum=2",
+        f"--train.bs={DROP_BS}", f"--train.bsv={DROP_BS}",
+        f"--misc.tmp_path={root / 'tmp'}")
+    ck = {n: str(root / f"{n}.ckpt") for n in ("s3", "s6", "two3")}
+    t0 = time.perf_counter()
+    straight = drop_steps(argv, "cuda", 6, saves={3: ck["s3"], 6: ck["s6"]})
+    two, wall = torchrun("drop", DP_RANKS, {
+        "device": "cuda:0", "backend": "gloo",
+        "argv": argv + ["--device=cuda:0", "--dist_backend=gloo"],
+        "runs": [{"steps": 3, "saves": {3: ck["two3"]}},
+                 {"steps": 1, "seed_apart": True}]}, root)
+    resumed = drop_steps(argv, "cuda", 3, start=3, resume=ck["two3"],
+                         saves={3: str(root / "resumed.ckpt")})
+    payload = torch.load(ck["two3"], map_location="cpu", weights_only=True)
+    assert payload["accum_count"] == 1 and payload["world_size"] == 2
+    del payload["accum_grads"]
+    payload["accum_count"] = 0
+    torch.save(payload, root / "no_cycle.ckpt")
+    control = drop_steps(argv, "cuda", 3, start=3,
+                         resume=str(root / "no_cycle.ckpt"),
+                         saves={3: str(root / "control.ckpt")})
+    one = straight["losses"][0]
+    firsts = [r["runs"][0]["losses"][0] for r in two]
+    apart = [r["runs"][1]["losses"][0] for r in two]
+    rel = abs(firsts[0] - one) / abs(one)
+    rel_apart = abs(apart[0] - one) / abs(one)
+    s3, s6 = ckpt_leaves(ck["s3"]), ckpt_leaves(ck["s6"])
+    got = drift(ckpt_leaves(root / "resumed.ckpt"), s6, s6, s3, "params")
+    ctl = drift(ckpt_leaves(root / "control.ckpt"), s6, s6, s3, "params")
+    later = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                 straight["losses"][3:])]
+    later_ctl = [abs(a - b) / abs(b) for a, b in zip(control["losses"],
+                                                     straight["losses"][3:])]
+    log(f"[29 drop] sfpret_txe_txd_vbarg d 1024, dropout 0.1, float32, "
+        f"global batch {DROP_BS}: first-step loss on 2 gloo ranks {firsts} "
+        f"against one process's {one!r} (relative {rel:.2e}, limit "
+        f"{DP_LOSS_RTOL:g}); ranks seeded apart (control) {apart} (relative "
+        f"{rel_apart:.2e}); grad_accum=2 cycle saved in flight on 2 ranks "
+        f"after step 3, resumed on 1 process for steps 4-6: parameter drift "
+        f"{got[0]:.3e} of the straight run's steps 4-6 update (limit "
+        f"{DROP_DRIFT:g}; largest leaves {got[1][:3]}), losses 4-6 relative "
+        f"{[f'{x:.1e}' for x in later]}; resumed without the cycle "
+        f"(control) {ctl[0]:.3e}, its losses 4-6 relative "
+        f"{[f'{x:.1e}' for x in later_ctl]}; walls: 2-rank launch "
+        f"{wall:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert firsts[0] == firsts[1] and apart[0] == apart[1], (firsts, apart)
+    assert rel <= DP_LOSS_RTOL < rel_apart, (firsts, apart, one)
+    assert got[0] <= DROP_DRIFT < ctl[0], (got[0], ctl[0])
+    assert max(later) <= DP_LOSS_RTOL, later
+    return {"first_loss_rel_err": rel, "control_rel_err": rel_apart,
+            "accum_drift": got[0], "accum_control_drift": ctl[0],
+            "later_loss_rel_err": max(later), "wall_s": wall}
+
+
+def fsdp_args(paths, root, *extra):
+    return vb_train_args(paths, root, "--tpu.mesh_shape=[1, 1]",
+                         "--tpu.mesh_axis_names=['data', 'fsdp']",
+                         "--dist_backend=nccl", *extra)
+
+
+def child_fsdp(spec, dev):
+    """Phase 30 on one NCCL rank: the I3D-NL R50 update at 80 clips (bf16
+    products) through a Learner whose model build_learner sharded over a
+    (1, 1) data x fsdp mesh, against one process's update from the same
+    weights (a plain copy, contiguous as FSDP2 keeps its parameters, and
+    one in channels_last_3d, the one-process default); each timed in
+    turns, with its peak memory; the layout a sharded convolution gets."""
+    import copy
+
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.convert.from_flax import (
+        flax_to_state_dict,
+        seeded_variables,
+    )
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.train.build import build_learner
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    uid, overrides, _ = port_main.parse_cli(spec["argv"])
+    cfg = get_cfg_with_overrides(uid, **{
+        **overrides, "train.bs": str(FSDP_VIDEOS)})
+    learner = build_learner(cfg, uid, dev)
+    assert learner.sharded and learner.eval_model is not learner.model
+    # seeded non-zero gammas: at flax's init the non-local blocks are
+    # identities and their attention gradients zero (phase 18)
+    sd = flax_to_state_dict(seeded_variables(learner.eval_model, 0))
+    target = learner.model.state_dict()
+    learner.model.load_state_dict({k: learner._shard_like(v, target[k])
+                                   for k, v in sd.items()}, strict=True)
+    learner.prepare_optimizer(float(cfg.train.lr))
+    plain = copy.deepcopy(learner.eval_model)
+    plain.load_state_dict(sd, strict=True)
+    plain.train()
+    chl = copy.deepcopy(plain).to(memory_format=torch.channels_last_3d)
+    opts = {m: torch.optim.Adam(m.parameters(), lr=float(cfg.train.lr),
+                                betas=(0.9, 0.99), eps=1e-8)
+            for m in (plain, chl)}
+    gen = torch.Generator(device=dev).manual_seed(30)
+    vm = cfg.vid_mdl
+    batch = {"frms_ev_fast_tensor": torch.randn(
+        (5 * FSDP_VIDEOS, int(vm.num_frames), int(vm.crop_size),
+         int(vm.crop_size), 3), generator=gen, device=dev).to(torch.bfloat16),
+        "label_tensor": torch.randint(0, 10, (FSDP_VIDEOS, 5), generator=gen,
+                                      device=dev)}
+    seen = {}
+    conv = learner.model.backbone.s3.block_0.b.conv
+
+    def record(mod, args):
+        w, x = mod.weight, args[0]
+        seen.update(
+            weight_channels_last=w.is_contiguous(
+                memory_format=torch.channels_last_3d),
+            weight_contiguous=w.is_contiguous(),
+            input_channels_last=x.is_contiguous(
+                memory_format=torch.channels_last_3d))
+
+    hook = conv.register_forward_pre_hook(record)
+
+    def plain_update(m):
+        opts[m].zero_grad(set_to_none=True)
+        loss = m(batch)["loss"]
+        loss.backward()
+        opts[m].step()
+        return loss.detach()
+
+    updates = {"fsdp": lambda: learner.train_step(batch),
+               "plain": lambda: plain_update(plain),
+               "channels_last": lambda: plain_update(chl)}
+    old = {k: v.detach().cpu().clone() for k, v in plain.state_dict().items()}
+    # the first update of each: the fsdp one's launches, its loss and
+    # weights against one process's (the contiguous copy); peak memory
+    peak, first = {}, {}
+    for name, fn in updates.items():
+        A.reset_launches()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        first[name] = float(fn())
+        torch.cuda.synchronize(dev)
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if name == "fsdp":
+            launches = {k: v for k, v in A.LAUNCHES_BY_ENTRY.items() if v}
+            got = learner._model_state(full=True)
+    hook.remove()
+    want = {k: v.detach().cpu() for k, v in plain.state_dict().items()}
+    rel = {p: drift(got, want, want, old, p)[0] for p in ELASTIC_DRIFT}
+    ms = {name: [] for name in updates}
+    for _ in range(FSDP_TIMED):
+        for name, fn in updates.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize(dev)
+            ms[name].append(a.elapsed_time(b))
+    out = {"loss": first, "loss_rel_err": abs(first["fsdp"] - first["plain"])
+           / abs(first["plain"]), "drift": rel, "layout": seen,
+           "fsdp_launches": launches, "peak_gib": peak,
+           "ms": {k: float(np.median(v)) for k, v in ms.items()},
+           "ms_all": ms}
+    del learner, plain, chl, opts
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fsdp_update(paths, root):
+    """Phase 30: fsdp on the card. gloo does not carry FSDP2's
+    reduce-scatter on CUDA tensors (PREMUL_SUM refused; with a plain sum
+    the ranks die of SIGSEGV), and NCCL refuses two ranks on one card: one
+    NCCL rank on a (1, 1) data x fsdp mesh runs fully_shard's DTensor path
+    here; the multi-rank parity is held on the CPU
+    (tests/test_torch_fsdp.py)."""
+    res, wall = torchrun("fsdp", 1, {
+        "device": "cuda", "backend": "nccl",
+        "argv": fsdp_args(paths, root / "fsdp",
+                          f"--misc.tmp_path={root / 'tmp_fsdp'}")}, root)
+    (r,) = res
+    fwd, bwd = bf16_update_entries()
+    log(f"[30 fsdp] I3D-NL R50 update at {5 * FSDP_VIDEOS} clips, bf16, one "
+        f"NCCL rank, (1, 1) data x fsdp mesh: first-update loss {r['loss']} "
+        f"(fsdp against plain relative {r['loss_rel_err']:.2e}, limit "
+        f"{DP_BF16_RTOL:g}); drift against the plain update {r['drift']} "
+        f"(limits {ELASTIC_DRIFT}); ms an update (median of {FSDP_TIMED}, "
+        f"in turns) {r['ms']} (all {r['ms_all']}); peak GiB {r['peak_gib']}; "
+        f"a sharded s3 convolution sees {r['layout']}; fsdp launches in one "
+        f"update {r['fsdp_launches']}; kernel vs plain {r['checks']}; "
+        f"torchrun wall {wall:.1f} s")
+    assert r["loss_rel_err"] <= DP_BF16_RTOL, r["loss"]
+    assert all(r["drift"][p] <= lim for p, lim in ELASTIC_DRIFT.items())
+    assert r["fsdp_launches"] == {fwd: NL_BLOCKS, bwd: NL_BLOCKS}, r
+    assert not r["layout"]["weight_channels_last"]
+    return {k: r[k] for k in ("loss", "loss_rel_err", "drift", "ms",
+                              "peak_gib", "layout", "fsdp_launches")}
+
+
+def bf16_update_entries():
+    """The routed bf16 entries of the I3D-NL update (d 256 and 512)."""
+    from vidsitu_tpu_torch.ops import attention as A
+
+    return (A.kernel_entry(torch.bfloat16, 256),
+            A.bwd_kernel_entry(torch.bfloat16, 256))
+
+
+def phase_fsdp_orbax(paths, root, straight):
+    """Phase 31: phase 28's fit (float32, deterministic algorithms) epoch 1
+    under fsdp (one NCCL rank, (1, 1) data x fsdp) saved through
+    ckpt_backend=orbax (DcpBackend: each rank's shards, async, generations
+    behind LIVE); epoch 2 resumed from it on one NCCL rank without fsdp;
+    against phase 28's straight run within phase 28's limits."""
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.train.checkpoint import DcpBackend
+
+    f32 = ("--train.dtype=float32", "--run_final_val=False",
+           "--train.ckpt_backend=orbax")
+    uid = "chip_smoke_vb"
+    fwd = A.kernel_entry(torch.float32, 256)
+    bwd = A.bwd_kernel_entry(torch.float32, 256)
+    steps, eval_batches = 2, -(-8 // VB_BS)
+    per_epoch = (NL_BLOCKS * (steps + eval_batches), NL_BLOCKS * steps)
+    nccl = {"device": "cuda", "backend": "nccl", "deterministic": True,
+            "dtype": "float32"}
+    save, save_wall = torchrun("elastic_fsdp_save", 1, {**nccl, "argv":
+                               fsdp_args(paths, root, "--train.epochs=1",
+                                         *f32, "--misc.tmp_path="
+                                         f"{root / 'tmp_fo'}")}, root)
+    ckpt = root / "tmp_fo" / "model_epochs" / uid / "mdl_ep_1.ckpt"
+    res, wall = torchrun("elastic_fsdp_resume", 1, {**nccl, "argv":
+                         vb_train_args(paths, root, "--train.epochs=1", *f32,
+                                       "--train.resume=True",
+                                       f"--train.resume_path={ckpt}",
+                                       f"--misc.tmp_path={root / 'tmp_fr'}",
+                                       "--dist_backend=nccl")}, root)
+    (s,), (r,) = save, res
+    path2 = root / "tmp_fr" / "model_epochs" / uid / "mdl_ep_2.ckpt"
+    sd2 = DcpBackend().load(path2)["model"]
+    sd1 = DcpBackend().load(ckpt)["model"]
+    s_sd, s_sd1, want2 = straight["s_sd"], straight["s_sd1"], straight["want2"]
+    loss2 = r["epochs"][-1]["trn_loss"]
+    rel_loss = abs(loss2 - want2) / abs(want2)
+    rel = {p: drift(sd2, s_sd, s_sd, s_sd1, p)[0] for p in ELASTIC_DRIFT}
+    rel1 = {p: drift(sd1, s_sd1, s_sd, s_sd1, p)[0] for p in ELASTIC_DRIFT}
+    launches = {"fsdp_save": (s["launches"].get(fwd, 0),
+                              s["launches"].get(bwd, 0)),
+                "resume": (r["launches"].get(fwd, 0),
+                           r["launches"].get(bwd, 0))}
+    gens = sorted(p.name for p in ckpt.iterdir())
+    log(f"[31 fsdp orbax] epoch 1 under fsdp saved through orbax "
+        f"({save_wall:.1f} s; {gens}), epoch 2 resumed on 1 NCCL rank "
+        f"({wall:.1f} s): epoch-2 loss {loss2!r} against phase 28's straight "
+        f"{want2!r} (relative {rel_loss:.2e}, limit {ELASTIC_RTOL:g}); "
+        f"drift after epoch 2 {rel}, after epoch 1 {rel1} (limits "
+        f"{ELASTIC_DRIFT}); launches {launches} (want {per_epoch}); kernel "
+        f"vs plain {[s['checks'], r['checks']]}")
+    assert gens == ["LIVE", "tree.g0"], gens
+    assert all(v == per_epoch for v in launches.values()), launches
+    assert rel_loss <= ELASTIC_RTOL, (loss2, want2)
+    assert all(rel[p] <= lim for p, lim in ELASTIC_DRIFT.items()), rel
+    return {"walls_s": {"fsdp_save": save_wall, "resume": wall},
+            "launches": launches, "loss_rel_err": rel_loss, "drift": rel,
+            "drift_epoch1": rel1}
 
 
 @contextlib.contextmanager
@@ -2678,7 +3046,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         fit_cli = phase_fit_cli(vb_root)
         release = phase_release_full_width(vb_paths, vb_root)
-        elastic = phase_elastic(vb_paths, vb_root, p17)
+        straight = {}
+        elastic = phase_elastic(vb_paths, vb_root, p17, keep=straight)
+        # sharded training: each run's counts set to 0 just before its
+        # entry point (dist_child; phase 30: just before its first update)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_drop_") as tmp:
+            dropout = phase_dropout_ranks(Path(tmp))
+        fsdp = phase_fsdp_update(vb_paths, vb_root)
+        fsdp_orbax = phase_fsdp_orbax(vb_paths, vb_root, straight)
+        del straight
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -2694,6 +3071,7 @@ def main() -> int:
 
     s3, s4 = times["s3"], times["s4"]
     fwd_entry = s3["entry"]
+    fsdp_fwd, fsdp_bwd = bf16_update_entries()
     bwd_entry = bwd_times["s3"]["entry"]
 
     def by_rank(res, entry):
@@ -2748,7 +3126,12 @@ def main() -> int:
                    elastic=elastic, fit_cli_wall_s=fit_cli["wall_s"],
                    release_steps={k: {m: v[m] for m in ("loss", "ms",
                                                         "peak_gib")}
-                                  for k, v in release["steps"].items()}),
+                                  for k, v in release["steps"].items()},
+                   launches_fsdp={"update_1rank": fsdp["fsdp_launches"].get(
+                       fsdp_fwd, 0), "orbax_fit": [
+                       n for n, _ in fsdp_orbax["launches"].values()]},
+                   fsdp_update=fsdp, fsdp_orbax=fsdp_orbax,
+                   dropout_ranks=dropout),
         kernel_row("beam_gather_rows", "beam_gather.cu",
                    "benchmarks/probe_beam_gather.py:62", gather_launches,
                    gather_err, gather_times[0], gather_times[1],
@@ -2817,7 +3200,10 @@ def main() -> int:
                    max_abs_err_dp={k: v[1] for k, v in
                                    dp[bwd_entry].items()},
                    launches_elastic={k: [n for _, n in v] for k, v in
-                                     elastic["launches"].items()}),
+                                     elastic["launches"].items()},
+                   launches_fsdp={"update_1rank": fsdp["fsdp_launches"].get(
+                       fsdp_bwd, 0), "orbax_fit": [
+                       n for _, n in fsdp_orbax["launches"].values()]}),
         kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
                    slice_launches["staged_copy"], 0.0, copy_ms["staged"],
                    copy_ms["clone"], *copy_bound, copy_ms["clone"]),

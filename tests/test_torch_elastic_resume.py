@@ -10,17 +10,17 @@ ranks' data shards of a global batch add up to the one-process batch, and
 the steps over 2 ranks compute the global batch's step (BatchNorm
 statistics, loss and gradients over the global batch), so a resized run
 equals a straight run on the new number of processes to float64 rounding.
-Checked for the SRL ``tx_only`` model (dropout 0, seeded weights) and the
-hand-built I3D-NL of tests/vb_train_parity.py (its BatchNorm statistics
+Checked for the SRL ``tx_only`` model (seeded weights; dropout 0, and
+dropout on as ``tx_drop``) and the hand-built I3D-NL of tests/vb_train_parity.py (its BatchNorm statistics
 too) at flax's initial values, with its non-local attention in float64
 (the port's and the JAX package's compute it in float32 whatever the
 model's dtype):
 
   * saved on 2 ranks, resumed on 1 process, against 4 steps on 1 process;
   * saved on 1 process, resumed on 2 ranks, against 4 steps on 2 ranks;
-  * with dropout on, the generators: rank r of the new run takes rank r's
-    saved state where there is one, a rank without one a generator seeded
-    from (train.seed, rank, num_it), and two resumes are bitwise equal;
+  * with dropout on, the one generator: every rank of the new run takes the
+    saved state (every rank draws the global batch's masks, so the resized
+    run is the straight run), and two resumes are bitwise equal;
   * a global batch that the new number of ranks does not divide raises.
 
 Each leaf is held within TOL[model] of its scale, and no less than that of
@@ -51,15 +51,13 @@ from vidsitu_tpu_torch.models import selector as psel
 from vidsitu_tpu_torch.models import video_backbone as tvb
 from vidsitu_tpu_torch.models.srl_models import SRLModel
 from vidsitu_tpu_torch.models.vb_models import VbVideoModel
-from vidsitu_tpu_torch.train.learner import dropout_seed
 from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
 
 torch.set_num_threads(1)
 
-TOL = {"i3d_nl": 1e-8, "tx_only": 1e-9}
+TOL = {"i3d_nl": 1e-8, "tx_only": 1e-9, "tx_drop": 1e-9}
 LR = 1e-3
-SEED = int(get_cfg_with_overrides('seed').train.seed)
-NAMES = ("i3d_nl", "tx_only")
+NAMES = ("i3d_nl", "tx_only", "tx_drop")
 
 
 def _srl_cfg(paths, tmp, **kw):
@@ -230,27 +228,25 @@ def test_one_process_checkpoint_resumes_on_two_ranks(runs, name):
 
 
 def test_dropout_generators_of_a_resized_resume(runs):
-    """Rank r takes saved state r where the checkpoint has one; a rank
-    without one takes (train.seed, rank, num_it); each resume repeats."""
+    """A checkpoint holds one generator state, the same on every rank; a
+    resume on any number of ranks takes it everywhere; each resume
+    repeats."""
     outs, one, ckpt = runs["two"], runs["one"], runs["ckpt"]
     one_saved = torch.load(ckpt / "tx_drop_1proc.ckpt", weights_only=True)
     two_saved = torch.load(ckpt / "tx_drop_2rank.ckpt", weights_only=True)
+    assert "dropout_rng_by_rank" not in two_saved
     assert torch.equal(one_saved["dropout_rng"],
                        one["tx_drop_save2"]["rng"])
     for r in range(2):
-        assert torch.equal(two_saved["dropout_rng_by_rank"][r],
+        assert torch.equal(two_saved["dropout_rng"],
                            outs[r]["tx_drop_save2"]["rng"])
-    # grow: rank 0 the saved state, rank 1 a fresh stream at num_it 2
-    fresh = torch.Generator().manual_seed(dropout_seed(SEED, 1, 2))
-    assert torch.equal(outs[0]["tx_drop_grow"]["rng_loaded"],
-                       one_saved["dropout_rng"])
-    assert torch.equal(outs[1]["tx_drop_grow"]["rng_loaded"],
-                       fresh.get_state())
-    assert not torch.equal(fresh.get_state(), torch.Generator().manual_seed(
-        dropout_seed(SEED, 1)).get_state())
-    # shrink: the one process takes rank 0's saved state
+        # grow: both ranks take the saved state
+        assert torch.equal(outs[r]["tx_drop_grow"]["rng_loaded"],
+                           one_saved["dropout_rng"])
+    # the same masks drawn on 1 process and on 2 ranks: the same stream
+    assert torch.equal(one_saved["dropout_rng"], two_saved["dropout_rng"])
     assert torch.equal(one["tx_drop_shrink"]["rng_loaded"],
-                       two_saved["dropout_rng_by_rank"][0])
+                       two_saved["dropout_rng"])
     # the masks drew: the dropout run left the dropout-free one
     assert one["tx_drop_straight"]["losses"] != one[
         "tx_only_straight"]["losses"]

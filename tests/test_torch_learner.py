@@ -101,8 +101,13 @@ def test_cli_without_device_raises_where_no_gpu(env, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(env):
-    with pytest.raises(NotImplementedError, match="orbax"):
-        get_backend("orbax")
+    """Tensor parallelism (a ``model`` mesh axis) is not ported; the orbax
+    backend is (its counterpart on torch.distributed.checkpoint)."""
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        port_main.main(cli_args(env, "tp", "--device=cpu",
+                                "--tpu.mesh_axis_names=['data', 'model']",
+                                "--tpu.mesh_shape=[1, 1]"))
+    assert get_backend("orbax").name == "orbax"
 
 
 def test_checkpoint_keeps_the_dropout_generator(env):

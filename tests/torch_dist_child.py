@@ -13,13 +13,19 @@ process and hand over the port's inputs as files.
 Modes:
   * ``steps``: for each case file (``torch.save`` of the model, its config
     overrides and each step's batch for every rank), a ``Learner`` on this
-    rank's batches, optionally resuming a checkpoint first and saving one
-    after; the global losses, the gradients the update used, the state dict
-    after the steps and the dropout generator's states; then, for each
-    ``builds`` entry, the error ``build_learner`` raises on its overrides;
+    rank's batches (its model sharded first when the overrides name an
+    ``fsdp`` mesh axis), optionally resuming a checkpoint first and saving
+    one after; the global losses, the gradients the update used, the state
+    dict after the steps (whole tensors) and the dropout generator's
+    states (``whole_on_rank0``: the gradients and the state dict on rank 0
+    only, the other ranks' being the same gathered tensors); then, for
+    each ``builds`` entry, the error ``build_learner`` raises on its
+    overrides;
   * ``main``: ``vidsitu_tpu_torch.main.main(argv)`` for each argv in turn,
     in the one process group; optionally SIGTERM sent by one rank to itself
-    when its train step ``kill_at_it`` starts;
+    when its train step ``kill_at_it`` starts, or one rank's SRL beam search
+    cut to 2 steps in one run (``short_decode``: the ranks then decode
+    different numbers of steps);
   * ``extract``: ``vidsitu_tpu_torch.extract.main(argv)``;
   * ``collectives``: ``parallel.collectives`` and ``parallel.mesh`` on
     float64 values that float32 cannot hold.
@@ -84,18 +90,45 @@ def to_torch(batch):
             for k, v in batch.items()}
 
 
+def whole(t):
+    """A DTensor gathered whole (a collective), a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def run_case(case, rank, tmp):
     """One case of mode ``steps`` on this rank (also called in the test's
     own process, rank 0 of one): a ``Learner`` that optionally resumes a
     checkpoint (``resume``, optimizer included) before its steps and saves
     one (``save``) after them; every step ticks ``num_it`` as an epoch's
-    steps do."""
+    steps do. ``divide`` sets FSDP2's gradient divide factor of every
+    wrapped module but the root back to this value (a control)."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from vidsitu_tpu_torch.parallel.mesh import make_mesh, shard_model
     from vidsitu_tpu_torch.train.learner import Learner
     from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
 
     model = case["model"]
     cfg = get_cfg_with_overrides("t", **{"misc.tmp_path": tmp,
                                          **case["cfg"]})
+    layout = None
+    if "fsdp" in cfg.tpu.mesh_axis_names:
+        mesh = make_mesh(cfg)
+        shard_model(model, mesh)
+        if case.get("divide"):
+            for m in model.modules():
+                if isinstance(m, FSDPModule) and m is not model:
+                    m.set_gradient_divide_factor(float(case["divide"]))
+        p0 = next(model.parameters())
+        layout = {"mesh": list(mesh.mesh.shape), "placements": {
+            n: [str(pl) for pl in p.placements]
+            for n, p in model.named_parameters()},
+            "local_rows": {n: p.to_local().shape[0] if p.dim() else 0
+                           for n, p in model.named_parameters()},
+            "first": str(type(p0).__name__)}
     learner = Learner("t", cfg, model, None, None, "cpu")
     learner.prepare_optimizer(case["lr"])
     rng_loaded = None
@@ -104,10 +137,17 @@ def run_case(case, rank, tmp):
         rng_loaded = learner.dropout_gen.get_state()
     grads = {}
     step = learner.optimizer.step
+    if layout is not None:
+        # the Learner and its optimizer hold the sharded parameters
+        opt_params = learner.optimizer.param_groups[0]["params"]
+        layout["learner_params_sharded"] = (
+            all(isinstance(p, DTensor) for p in learner._params)
+            and len(opt_params) == len(learner._params)
+            and all(a is b for a, b in zip(opt_params, learner._params)))
 
     def keep_grads_then_step(step=step, grads=grads, model=model):
-        grads.update({n: (torch.zeros_like(p) if p.grad is None
-                          else p.grad.clone())
+        grads.update({n: whole(torch.zeros_like(p) if p.grad is None
+                               else p.grad.clone())
                       for n, p in model.named_parameters()})
         step()
 
@@ -118,18 +158,23 @@ def run_case(case, rank, tmp):
         learner.num_it += 1
     if case.get("save"):
         learner.save_model_dict(case["save"])
+        learner.ckpt_backend.wait()
     return {"losses": losses, "grads": grads,
-            "state_dict": {k: v.clone() for k, v in
+            "state_dict": {k: whole(v).clone() for k, v in
                            model.state_dict().items()},
             "num_it": learner.num_it, "rng_loaded": rng_loaded,
-            "rng": learner.dropout_gen.get_state()}
+            "rng": learner.dropout_gen.get_state(), "layout": layout,
+            "accum_count": learner._accum_count}
 
 
 def mode_steps(spec, rank):
     out = {}
     for path in spec["cases"]:
         case = torch.load(path, weights_only=False)
-        out[case["name"]] = run_case(case, rank, spec["tmp"])
+        res = run_case(case, rank, spec["tmp"])
+        if rank and spec.get("whole_on_rank0"):
+            res.update(grads=None, state_dict=None)
+        out[case["name"]] = res
     for name, overrides in spec.get("builds", {}).items():
         # build_learner on this group: the error it raises, if any
         from vidsitu_tpu_torch.train.build import build_learner
@@ -158,6 +203,18 @@ def mode_main(spec, rank):
             return step(self, batch)
 
         Learner.train_step = train_step
+    short = spec.get("short_decode") or {}
+    if short.get("rank") == rank:
+        from vidsitu_tpu_torch.gen import generate
+
+        search = generate.beam_search
+
+        def beam_search(*a, **kw):
+            if len(runs) == short["run"]:
+                kw["max_len"] = min(kw["max_len"], 2)
+            return search(*a, **kw)
+
+        generate.beam_search = beam_search
     runs = []
     for argv in spec["runs"]:
         res = pmain.main(argv)
@@ -167,7 +224,10 @@ def mode_main(spec, rank):
                         for k, v in res["results"].items()},
             "num_epoch": learner.num_epoch, "num_it": learner.num_it,
             "preempted": learner._preempt_requested,
-            "dropout_rng": learner.dropout_gen.get_state()})
+            "dropout_rng": learner.dropout_gen.get_state(),
+            "decode_steps": getattr(getattr(
+                res["evaluator"], "generate_fn", None), "steps", None),
+            "sharded": learner.sharded})
     return {"runs": runs}
 
 

@@ -47,17 +47,27 @@ _DROPOUT = threading.local()
 
 
 @contextlib.contextmanager
-def dropout_generator(gen: Optional[torch.Generator]):
+def dropout_generator(gen: Optional[torch.Generator], rank: int = 0,
+                      world: int = 1, examples: Optional[int] = None):
     """Draw every dropout mask inside the block from ``gen`` (a
     ``torch.Generator`` on the device of the activations), as flax's
     ``apply(..., rngs={"dropout": key})`` does for one step. Blocks nest;
-    the innermost generator is used."""
-    prev = getattr(_DROPOUT, "gen", None)
+    the innermost generator is used.
+
+    With ``world`` > 1 the block runs rank ``rank``'s share of a global
+    batch: its ``examples`` examples are the global batch's rows
+    ``rank::world`` (the loader's ``ShardedSampler`` layout). Every rank
+    holds the same generator, draws the mask of the global batch and keeps
+    its own examples' rows, so the masks do not depend on the number of
+    ranks (the JAX package draws them for the global batch in one
+    program). That costs ``world`` times the random draws of a step."""
+    prev = (getattr(_DROPOUT, "gen", None), getattr(_DROPOUT, "shard", None))
     _DROPOUT.gen = gen
+    _DROPOUT.shard = (rank, world, examples) if world > 1 else None
     try:
         yield gen
     finally:
-        _DROPOUT.gen = prev
+        _DROPOUT.gen, _DROPOUT.shard = prev
 
 
 @contextlib.contextmanager
@@ -78,7 +88,15 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     :func:`deterministic`, else ``x * keep / (1 - rate)`` with ``keep``
     drawn from the generator of the innermost :func:`dropout_generator`
     block. Never the global random state: a training forward outside such a
-    block raises."""
+    block raises.
+
+    Under a block of several ranks, ``x``'s leading dimension must be
+    example-major: the block's examples, each with the same number of rows
+    (events, pairs, annotations folded in). Every site of the models is:
+    (B, T, D) activations, (B, H, T, S) attention probabilities, and (B*5,
+    ...) or (B*4*N, ...) where events or pairs are folded in behind the
+    example. A leading dimension that is not a multiple of the examples
+    raises."""
     if rate <= 0.0 or not training or getattr(_DROPOUT, "off", False):
         return x
     gen = getattr(_DROPOUT, "gen", None)
@@ -86,8 +104,21 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         raise RuntimeError(
             "dropout in training mode draws from an explicit generator: run "
             "the forward inside models.common.dropout_generator(gen)")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
-    return x * keep / (1.0 - rate)
+    shard = getattr(_DROPOUT, "shard", None)
+    if shard is None:
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+    else:
+        rank, world, n = shard
+        if not n or x.dim() == 0 or x.shape[0] % n:
+            raise RuntimeError(
+                f"dropout over {world} ranks: a site's leading dimension "
+                f"({tuple(x.shape)}) is not example-major over this rank's "
+                f"{n} examples")
+        # the global batch's mask, (examples * world, rows of an example);
+        # this rank's examples are its rows rank::world
+        u = torch.rand((n * world, x.numel() // n), generator=gen,
+                       device=x.device)[rank::world].reshape(x.shape)
+    return x * (u < 1.0 - rate) / (1.0 - rate)
 
 
 def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

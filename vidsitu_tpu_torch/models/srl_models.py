@@ -50,8 +50,9 @@ def get_head_dim(full_cfg) -> int:
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          pad_id: int) -> torch.Tensor:
-    """Mean CE over non-pad labels, in float32, 0 when every label is
-    pad. The pad label is replaced by class 0 before the gather and masked
+    """Mean CE over non-pad labels, in float32 (float64 for float64
+    logits, so that a float64 step keeps its precision), 0 when every label
+    is pad. The pad label is replaced by class 0 before the gather and masked
     after it, so a pad id outside the classes (the verb task's -1) works as
     it does in the JAX package.
 
@@ -62,9 +63,10 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     sums them)."""
     labels = labels.reshape(-1)
     mask = labels != pad_id
-    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+    stat = torch.promote_types(logits.dtype, torch.float32)
+    ce = F.cross_entropy(logits.to(stat).reshape(-1, logits.shape[-1]),
                          torch.where(mask, labels, 0), reduction="none")
-    mask = mask.float()
+    mask = mask.to(stat)
     count = mask.sum()
     if get_world_size() > 1 and torch.is_grad_enabled():
         count = count.detach().clone()

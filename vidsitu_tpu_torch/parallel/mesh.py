@@ -1,5 +1,6 @@
-"""The process group, each rank's device and the data-parallel mesh (port
-of vidsitu_tpu/parallel/mesh.py:21-95; reference: utils/trn_dist_utils.py).
+"""The process group, each rank's device, the mesh and fsdp (port of
+vidsitu_tpu/parallel/mesh.py:21-95, 156-199; reference:
+utils/trn_dist_utils.py).
 
 One process per GPU, launched by ``torchrun``, which sets ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` / ``MASTER_PORT``::
@@ -7,15 +8,23 @@ One process per GPU, launched by ``torchrun``, which sets ``RANK``,
     torchrun --standalone --nproc_per_node=8 -m vidsitu_tpu_torch.main \\
         vb_run --task_type=vb --device=cuda
 
-Parameters are replicated and the global batch is split over the ranks
-along the one mesh axis, ``data``. The JAX package's ``fsdp`` and ``model``
-axes (ZeRO-3, Megatron tensor parallelism: ``tp_spec``,
-``param_shardings``) are not ported (ROADMAP.md, Queue 1 item 6).
+The mesh is ``tpu.mesh_shape`` over ``tpu.mesh_axis_names``, as the JAX
+package's: ``data`` replicates the parameters, ``fsdp`` shards them
+(ZeRO-3, ``torch.distributed.fsdp.fully_shard``), and the global batch is
+split over data x fsdp, i.e. over every rank. An fsdp run::
+
+    torchrun --standalone --nproc_per_node=4 -m vidsitu_tpu_torch.main \\
+        vb_run --task_type=vb --device=cuda \\
+        --tpu.mesh_shape='[2, -1]' --tpu.mesh_axis_names="['data', 'fsdp']"
+
+The JAX package's ``model`` axis (Megatron tensor parallelism, ``tp_spec``)
+is not ported (ROADMAP.md, Queue 1 item 3) and raises.
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 from typing import Optional
 
@@ -26,7 +35,8 @@ from .collectives import is_dist
 
 # the process group's timeout: a collective that waits longer raises
 TIMEOUT_S = 1800.0
-NOT_PORTED_AXES = ("fsdp", "model")
+KNOWN_AXES = ("data", "fsdp", "model")
+NOT_PORTED_AXES = ("model",)
 
 
 def rank_device(device, local_rank: int) -> torch.device:
@@ -85,27 +95,113 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
 def check_axes(cfg) -> None:
     """Raise for the mesh axes the port does not have."""
     names = tuple(cfg.tpu.mesh_axis_names)
+    unknown = [a for a in names if a not in KNOWN_AXES]
+    if unknown or len(set(names)) != len(names):
+        raise ValueError(f"cfg.tpu.mesh_axis_names={list(names)}: each of "
+                         f"{list(KNOWN_AXES)} at most once")
     bad = [a for a in names if a in NOT_PORTED_AXES]
     if bad:
         raise NotImplementedError(
             f"mesh axes {bad} (cfg.tpu.mesh_axis_names={list(names)}): "
-            "fsdp / tensor parallelism are not ported (ROADMAP.md, Queue 1 "
-            "item 6); the port splits the batch over one 'data' axis")
+            "tensor parallelism is not ported (ROADMAP.md, Queue 1 item 3); "
+            "the port has the 'data' and 'fsdp' axes")
+
+
+def mesh_shape(cfg, world: int) -> tuple:
+    """``cfg.tpu.mesh_shape`` over ``world`` ranks, as the JAX ``make_mesh``
+    reads it: one ``-1`` is filled from the world size; a shape whose
+    product is not the world size raises."""
+    check_axes(cfg)
+    names = tuple(cfg.tpu.mesh_axis_names)
+    shape = [int(s) for s in cfg.tpu.mesh_shape]
+    if len(shape) != len(names) or shape.count(-1) > 1 or any(
+            s == 0 or s < -1 for s in shape):
+        raise ValueError(f"cfg.tpu.mesh_shape={shape} over axes "
+                         f"{list(names)}: one size per axis, at most one -1")
+    fixed = math.prod(s for s in shape if s != -1)
+    shape = [world // fixed if s == -1 else s for s in shape]
+    if math.prod(shape) != world:
+        raise ValueError(f"cfg.tpu.mesh_shape={list(cfg.tpu.mesh_shape)} "
+                         f"-> {shape} does not cover the {world} ranks")
+    return tuple(shape)
 
 
 def make_mesh(cfg, device_type: str = "cpu"):
-    """The 1-D ``DeviceMesh`` ``('data',)`` over every rank of the process
-    group (which must exist)."""
+    """The ``DeviceMesh`` of ``cfg.tpu.mesh_shape`` / ``mesh_axis_names``
+    over every rank of the process group (which must exist)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     check_axes(cfg)
     if not is_dist():
         raise RuntimeError("make_mesh needs a process group "
                            "(parallel.mesh.init_distributed)")
-    return init_device_mesh(device_type, (dist.get_world_size(),),
-                            mesh_dim_names=("data",))
+    shape = mesh_shape(cfg, dist.get_world_size())
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=tuple(cfg.tpu.mesh_axis_names))
 
 
 def data_extent(mesh) -> int:
-    """How many ways the batch axis is split: the ``data`` axis's size."""
-    return int(mesh.size(0))
+    """How many ways the batch axis is split: the product of the ``data``
+    and ``fsdp`` extents (fsdp is a subdivision of data parallelism)."""
+    return math.prod(int(mesh[a].size()) for a in mesh.mesh_dim_names
+                     if a in ("data", "fsdp"))
+
+
+def shards_params(mesh) -> bool:
+    """Whether the mesh has an ``fsdp`` axis (of any extent, 1 included)."""
+    return mesh is not None and "fsdp" in mesh.mesh_dim_names
+
+
+def fsdp_blocks(model: torch.nn.Module):
+    """The modules that :func:`shard_model` wraps on their own, outermost
+    first: the video backbone's bottlenecks and non-local blocks and the
+    transformers' layers (encoder, decoder, RoBERTa, relative)."""
+    from ..models.rel_transformer import RelEncoderLayer
+    from ..models.transformer import EncoderLayer
+    from ..models.video_backbone import Bottleneck, NonLocalBlock
+
+    kinds = (Bottleneck, NonLocalBlock, EncoderLayer, RelEncoderLayer)
+    out, inside = [], set()
+    for name, m in model.named_modules():
+        if isinstance(m, kinds) and not any(
+                name.startswith(p + ".") for p in inside):
+            out.append(m)
+            inside.add(name)
+    return out
+
+
+def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """ZeRO-3 over ``mesh``'s ``fsdp`` axis (FSDP2's ``fully_shard``): each
+    block of :func:`fsdp_blocks`, then the root. With a ``data`` axis too
+    the parameters are sharded over ``fsdp`` and replicated over ``data``
+    (HSDP); with ``fsdp`` alone, sharded over every rank.
+
+    Each parameter, its gradient and Adam's moments become DTensors sharded
+    along dim 0 (padded where the extent does not divide it). The JAX
+    package's ``param_shardings`` takes the largest divisible dimension
+    instead; the layouts differ, the values do not (the choice of sharding
+    is numerically transparent). BatchNorm statistics are buffers and stay
+    replicated. FSDP2 divides reduced gradients by the world size, per
+    wrapped module: the divide factor is set to 1 on every one of them (and
+    the reduction to a plain sum), so that the gradients are summed over
+    the ranks as the JAX program's global-batch step sums them. FSDP2 takes contiguous parameters only, so
+    the model must not be moved to ``channels_last_3d``."""
+    from torch.distributed.fsdp import FSDPModule, fully_shard
+
+    names = mesh.mesh_dim_names
+    sub = mesh[("data", "fsdp")] if "data" in names else mesh["fsdp"]
+    for block in fsdp_blocks(model):
+        fully_shard(block, mesh=sub)
+    fully_shard(model, mesh=sub)
+    for m in model.modules():
+        if isinstance(m, FSDPModule):
+            m.set_gradient_divide_factor(1.0)
+            # a plain SUM (gloo has no PREMUL_SUM)
+            m.set_force_sum_reduction_for_comms(True)
+    return model
+
+
+def is_sharded(model: torch.nn.Module) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)

@@ -3,10 +3,14 @@ main_dist.py:94-129): data, model (initialised, pretrained weights,
 weights given by the caller), the task's evaluator and the Learner, for
 the three tasks: ``vb``, ``vb_arg`` and ``evrel``, training and evaluation,
 on one device per process. Under a process group each rank loads its shard
-of the global batch (``get_data(cfg, num_shards=world, shard_id=rank)``).
+of the global batch (``get_data(cfg, num_shards=world, shard_id=rank)``);
+with an ``fsdp`` mesh axis a training model is sharded
+(``parallel.mesh.shard_model``) and evaluates through a whole copy.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 
@@ -51,7 +55,13 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         init_model_variables,
     )
     from ..parallel.collectives import get_rank, get_world_size, is_dist
-    from ..parallel.mesh import check_axes, data_extent, make_mesh
+    from ..parallel.mesh import (
+        data_extent,
+        make_mesh,
+        mesh_shape,
+        shard_model,
+        shards_params,
+    )
     from .pretrained import load_pretrained_variables
 
     task = cfg.task_type
@@ -59,17 +69,16 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         raise NotImplementedError(f"task_type {task!r}")
     dev = resolve_device(device)
     rank, world = get_rank(), get_world_size()
-    if is_dist():
-        extent = data_extent(make_mesh(cfg, dev.type))
-    else:
-        check_axes(cfg)
-        extent = 1
+    mesh = make_mesh(cfg, dev.type) if is_dist() else None
+    if mesh is None:
+        mesh_shape(cfg, 1)  # the axes and the shape must hold on one process
+    extent = data_extent(mesh) if mesh is not None else 1
     for key in ("bs", "bsv"):
         # each rank loads global batch / world rows (learner.py:108-126)
         if int(cfg.train[key]) % extent:
             raise ValueError(
                 f"train.{key}={cfg.train[key]} (the global batch) is not "
-                f"divisible by the {extent} ranks of the 'data' axis")
+                f"divisible by the {extent} ranks of the data x fsdp axes")
     data = get_data(cfg, num_shards=world, shard_id=rank)
     comm = data.valid_dl.dataset.comm
     model = build_model(cfg, comm)
@@ -81,21 +90,30 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         if weights:
             load_weights(model, cfg, weights, False)
     model.to(dev)
+    sharded = shards_params(mesh) and is_training(cfg)
+    if task == "vb" and dev.type == "cuda" and not sharded:
+        # FSDP2 refuses parameters that are not contiguous
+        model.to(memory_format=torch.channels_last_3d)
+    # a sharded model evaluates through a whole copy on every rank: the
+    # ranks' decodes stop at different steps, and a per-forward all-gather
+    # would then deadlock (the Learner copies the weights in before each
+    # validation)
+    eval_model = copy.deepcopy(model) if sharded else model
+    if sharded:
+        shard_model(model, mesh)
     if task == "vb":
-        if dev.type == "cuda":
-            model.to(memory_format=torch.channels_last_3d)
-        eval_fn = EvalB(cfg, comm, model, dev, split_type=(
+        eval_fn = EvalB(cfg, comm, eval_model, dev, split_type=(
             "valid" if not cfg.only_test else "test_verb"), rank=rank,
             world_size=world)
     elif task == "evrel":
-        eval_fn = EvalB_Acc(cfg, comm, model, dev, split_type=(
+        eval_fn = EvalB_Acc(cfg, comm, eval_model, dev, split_type=(
             "valid" if not cfg.only_test else "test_evrel"), rank=rank,
             world_size=world)
     else:
         eval_fn = EvalB_Gen(
-            cfg, comm, build_srl_generate_fn(cfg, comm, model), dev,
+            cfg, comm, build_srl_generate_fn(cfg, comm, eval_model), dev,
             split_type="valid" if not cfg.only_test else "test_srl",
             rank=rank, world_size=world)
     model.train(is_training(cfg))
     return Learner(uid=uid, cfg=cfg, model=model, data=data, eval_fn=eval_fn,
-                   device=dev)
+                   device=dev, eval_model=eval_model)

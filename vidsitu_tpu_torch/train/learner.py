@@ -11,7 +11,9 @@ PyTorch:
   * Adam(0.9, 0.99, eps 1e-8) with the lr in the param group, so plateau
     changes it in place (``optax.inject_hyperparams(adam)``);
   * ``train.grad_accum`` = k is ``optax.MultiSteps``: the mean of k
-    gradients, one update every k steps;
+    gradients, one update every k steps; a cycle in flight (its count and
+    the gradients so far) goes into a checkpoint and resumes, as the
+    MultiSteps state does in the JAX package's;
   * ``train.freeze_sfbase`` zeroes the backbone's gradients before each
     update (its BatchNorm statistics still move);
   * the loss of a step is fetched to the host only after the next step was
@@ -28,15 +30,20 @@ Under a process group each rank trains on its shard of the global batch and
 the step computes what the JAX package's one program computes over the
 global batch: BatchNorm takes the global batch's statistics and the loss is
 the global masked mean (each rank's share; ``models/``), so the ranks'
-gradients are summed, not averaged, in one flat all-reduce before the
+gradients are summed, not averaged: in one flat all-reduce before the
 update (every ``grad_accum``-th step; a parameter without a gradient on
-every rank keeps none). Each rank draws dropout from its own generator,
-seeded from ``(train.seed, rank)``; rank 0 writes the logs, the tracker and
-the checkpoints, which hold every rank's generator state (a checkpoint
-resumes on any number of ranks that divides the global batches:
-``load_model_dict``); rank 0's validation results reach every rank, so
-best-metric, plateau and save decisions agree; SIGTERM is honoured at the
-epoch boundary, once any rank has seen it (``_sync_preempt_flag``).
+every rank keeps none), or, under fsdp (``parallel.mesh.shard_model``), by
+FSDP2's reduce-scatter at every backward with its divide factor at 1. Every
+rank holds the same dropout generator, seeded from ``train.seed``, and
+keeps its examples' rows of the global batch's masks
+(``models.common.dropout_generator``), so a step does not depend on the
+number of ranks. Rank 0 writes the logs and the tracker; checkpoints hold
+one generator state and resume on any number of ranks and any mesh that
+divides the global batches (``load_model_dict``); a sharded model validates
+through a whole copy (``eval_model``), refreshed before each validation;
+rank 0's validation results reach every rank, so best-metric, plateau and
+save decisions agree; SIGTERM is honoured at the epoch boundary, once any
+rank has seen it (``_sync_preempt_flag``).
 """
 
 from __future__ import annotations
@@ -53,7 +60,6 @@ import numpy as np
 import torch
 
 from ..parallel.collectives import (
-    all_gather_object,
     broadcast_object,
     collective_device,
     get_rank,
@@ -88,15 +94,6 @@ def good_format_stats(names, stats) -> str:
     return " ".join(f"{k}: {float(stats.get(k, 0.0)):.4f}" for k in names)
 
 
-def dropout_seed(seed: int, rank: int, num_it: int = 0) -> int:
-    """Rank ``rank``'s dropout seed: ``seed`` on rank 0 (a one-process run
-    draws what it drew before), distinct on every other rank; ``num_it`` > 0
-    for a rank that joins a resumed run without a saved state, so that it
-    does not repeat the masks a fresh run's rank drew from iteration 0
-    (64 bits, as ``torch.Generator.manual_seed`` takes)."""
-    return (int(seed) + (int(rank) << 32) + (int(num_it) << 48)) % 2 ** 64
-
-
 def batch_to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """Numeric numpy arrays of a host batch -> tensors on ``device``; on a
     GPU through pinned memory, without blocking the host."""
@@ -118,7 +115,9 @@ class Learner:
     ``evaluation/evaluators.py``)."""
 
     def __init__(self, uid: str, cfg, model: torch.nn.Module, data, eval_fn,
-                 device, loss_keys=("loss",)):
+                 device, loss_keys=("loss",),
+                 eval_model: Optional[torch.nn.Module] = None):
+        from ..parallel.mesh import is_sharded
         from .checkpoint import get_backend
         from .pretrained import make_freeze_mask
 
@@ -126,6 +125,9 @@ class Learner:
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model
+        # what eval_fn runs: the model, or a whole copy of a sharded one
+        self.eval_model = model if eval_model is None else eval_model
+        self.sharded = is_sharded(model)
         self.data = data
         self.eval_fn = eval_fn
         self.loss_keys = list(loss_keys)
@@ -138,20 +140,23 @@ class Learner:
         self._lr = None
         self._grad_accum = max(int(cfg.train.grad_accum), 1)
         self._accum_count = 0
-        self._pending_opt = None  # optimizer state stashed by a resume
-        self._pending_lr = None
+        # optimizer state (and a grad_accum cycle) stashed by a resume
+        self._pending_opt = None
         self._preempt_requested = False
         self._stale_preempt = None  # consumed preempt ckpt, deleted on save
         self.ckpt_backend = get_backend(cfg.train.ckpt_backend)
         self.rank, self.world_size = get_rank(), get_world_size()
         self.is_main = self.rank == 0
-        # the dropout masks' random state, on the training device; the only
-        # random state of a step (the JAX package's rng)
+        # the dropout masks' random state, on the training device, the same
+        # on every rank; the only random state of a step (the JAX
+        # package's rng)
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
-            dropout_seed(cfg.train.seed, self.rank))
+            int(cfg.train.seed))
         frozen = make_freeze_mask(cfg, model)
+        # under fsdp these are the sharded (DTensor) parameters
         params = dict(model.named_parameters())
         self._frozen = [params[n] for n in frozen] if frozen else []
+        self._param_names = list(params)
         self._params = list(params.values())
         self.init_log_dirs()
         self.prepare_log_file()
@@ -203,20 +208,26 @@ class Learner:
     def prepare_optimizer(self, lr: float):
         """Adam(0.9, 0.99) over every parameter, lr in the param group; a
         stashed optimizer state from ``load_model_dict(load_opt=True)`` is
-        restored here, with its lr."""
+        restored here, with its lr and its ``grad_accum`` cycle. Without
+        one, no cycle is in flight."""
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=lr, betas=(0.9, 0.99), eps=1e-8)
         self._lr = lr
-        self._accum_count = 0
-        if self._pending_opt is not None:
-            self.optimizer.load_state_dict(self._pending_opt)
-            self._pending_opt = None
-            restored = self._pending_lr
-            if restored is None:
-                restored = self.optimizer.param_groups[0]["lr"]
-            self._set_lr(float(restored))
-            self._pending_lr = None
-            self.logger.info("restored optimizer state (lr=%.2e)", self._lr)
+        pending, self._pending_opt = self._pending_opt, None
+        if pending is not None:
+            self._restore_opt(pending)
+        else:
+            self.optimizer.zero_grad(set_to_none=True)
+            self._accum_count = 0
+
+    def _restore_opt(self, pending: Dict):
+        self._load_opt_state(pending["opt"])
+        lr = pending["lr"]
+        if lr is None:
+            lr = self.optimizer.param_groups[0]["lr"]
+        self._set_lr(float(lr))
+        self._restore_accum(pending["accum_count"], pending["accum"])
+        self.logger.info("restored optimizer state (lr=%.2e)", self._lr)
 
     def _set_lr(self, lr: float):
         self._lr = lr
@@ -232,12 +243,15 @@ class Learner:
         from ..models.common import dropout_generator
 
         self.model.train()
-        with dropout_generator(self.dropout_gen):
+        # every batch holds vseg_idx: one row per example of this rank
+        examples = len(batch["vseg_idx"]) if "vseg_idx" in batch else None
+        with dropout_generator(self.dropout_gen, self.rank, self.world_size,
+                               examples):
             loss = self.model(batch)["loss"]
         (loss / self._grad_accum).backward()
         self._accum_count += 1
         if self._accum_count == self._grad_accum:
-            if is_dist():
+            if is_dist() and not self.sharded:
                 self._sum_grads()
             for p in self._frozen:
                 if p.grad is not None:
@@ -252,10 +266,17 @@ class Learner:
         return loss
 
     def _sum_grads(self):
-        """Sum the ranks' gradients in one flat all-reduce, with a flag per
-        parameter: one that has no gradient on any rank keeps none (Adam
-        then leaves it alone, as on one process), one that has a gradient
-        on some rank takes zeros where it has none."""
+        """Sum the ranks' gradients in place (``_summed_grads``)."""
+        for p, g in zip(self._params, self._summed_grads(inplace=True)):
+            p.grad = g
+
+    def _summed_grads(self, inplace: bool) -> List[Optional[torch.Tensor]]:
+        """The ranks' gradients summed in one flat all-reduce, with a flag
+        per parameter: one that has no gradient on any rank keeps none
+        (Adam then leaves it alone, as on one process), one that has a
+        gradient on some rank takes zeros where it has none. ``inplace``
+        writes the sums into the gradients' own storage; else they are
+        new tensors and the gradients stay as they were."""
         params = self._params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
@@ -265,9 +286,9 @@ class Learner:
         torch.distributed.all_reduce(flat)
         sizes = [g.numel() for g in grads] + [len(params)]
         *parts, flags = flat.split(sizes)
-        for p, g, part, any_grad in zip(params, grads, parts,
-                                         flags.tolist()):
-            p.grad = g.copy_(part.view(g.shape)) if any_grad else None
+        return [(g.copy_(part.view(g.shape)) if inplace
+                 else part.view(g.shape)) if any_grad else None
+                for g, part, any_grad in zip(grads, parts, flags.tolist())]
 
     # -- preemption -------------------------------------------------------------
     def _install_preempt_handler(self):
@@ -369,8 +390,13 @@ class Learner:
         if db is None:
             db = {self.cfg.val_dl_name: self.data.valid_dl}
         out_loss, out_acc = {}, {}
+        if self.eval_model is not self.model:
+            # the sharded weights, gathered whole on every rank (collective)
+            self.eval_model.load_state_dict(self._model_state(full=True,
+                                                              cpu=False))
         was_training = self.model.training
         self.model.eval()
+        self.eval_model.eval()
         try:
             for dl_name, dl in db.items():
                 loss, acc = self.eval_fn(dl, dl_name, self.predictions_dir)
@@ -417,6 +443,7 @@ class Learner:
                                      "re-run uid %s to resume",
                                      self.preempt_file, self.uid)
                     tracker.end_run()
+                    self.ckpt_backend.wait()
                     return
                 val_loss, val_acc, _ = self.validate()
                 self.num_epoch += 1
@@ -454,6 +481,7 @@ class Learner:
             self.update_log_file(f"exited due to exception {e!r}")
             self.update_log_file(f"elapsed {time.time() - st_time:.1f}s")
             tracker.end_run()
+            self.ckpt_backend.wait()
             raise
         finally:
             restore_sig()
@@ -461,6 +489,7 @@ class Learner:
             f"epochs done. elapsed {time.time() - st_time:.1f}s")
         tracker.log_artifact(self.txt_log_file)
         tracker.end_run()
+        self.ckpt_backend.wait()  # an async save in flight commits
 
     def overfit_batch(self, epochs: int, lr: float) -> List[float]:
         """Single-batch convergence sanity (trn_utils.py:915-939)."""
@@ -476,49 +505,165 @@ class Learner:
         return losses
 
     # -- checkpointing (trn_utils.py:631-749) -----------------------------------
+    # One layout in every mode: the model's state dict, Adam's state keyed by
+    # parameter name, the grad_accum cycle's gradients by name. ``full``
+    # gathers fsdp's shards whole (a collective: every rank calls it) for
+    # the pickle backend; else the shards go to the orbax backend as they
+    # are. (``torch.distributed.checkpoint.state_dict``'s getters would
+    # take an optimizer step of lr 0 to make Adam's state where it has none
+    # yet, which moves Adam's step count: they are not used.)
+
+    @staticmethod
+    def _whole(v: torch.Tensor, cpu: bool) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(v, DTensor):
+            v = v.full_tensor()
+        return v.detach().cpu() if cpu else v.detach()
+
+    @staticmethod
+    def _shard_like(full: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """A whole tensor in ``target``'s layout: this rank's shard where
+        ``target`` is a DTensor, else the tensor on ``target``'s device."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        full = full.to(target.device, target.dtype)
+        if isinstance(target, DTensor):
+            # every rank holds the whole tensor: no communication
+            return distribute_tensor(full, target.device_mesh,
+                                     target.placements, src_data_rank=None)
+        return full
+
+    def _model_state(self, full: bool, cpu: bool = True) -> Dict:
+        return {k: self._whole(v, cpu) if full else v.detach()
+                for k, v in self.model.state_dict().items()}
+
+    def _opt_state(self, full: bool) -> Optional[Dict]:
+        if self.optimizer is None:
+            return None
+        sd = self.optimizer.state_dict()
+        names = self._param_names  # the optimizer's order (parameters())
+        state = {names[i]: {k: self._whole(v, True) if full else v
+                            for k, v in st.items()}
+                 for i, st in sd["state"].items()}
+        groups = [{**g, "params": [names[i] for i in g["params"]]}
+                  for g in sd["param_groups"]]
+        return {"state": state, "param_groups": groups}
+
+    def _load_opt_state(self, saved: Dict):
+        """Adam's state by parameter name (or by index: checkpoints written
+        before the layout was by name), whole tensors, into this run's
+        optimizer and layout."""
+        names = self._param_names
+        index = {n: i for i, n in enumerate(names)}
+
+        def name(k):
+            return names[k] if isinstance(k, int) else k
+
+        state = {}
+        for k, st in saved["state"].items():
+            i = index[name(k)]
+            p = self._params[i]
+            state[i] = {f: v if f == "step" else self._shard_like(v, p)
+                        for f, v in st.items()}
+        groups = [{**g, "params": [index[name(k)] for k in g["params"]]}
+                  for g in saved["param_groups"]]
+        self.optimizer.load_state_dict({"state": state,
+                                        "param_groups": groups})
+
+    def _accum_state(self, full: bool) -> Dict[str, torch.Tensor]:
+        """The gradients of the ``grad_accum`` cycle in flight, summed over
+        the ranks, by name ({} outside a cycle). Data-parallel ranks still
+        hold their own partial gradients (``_sum_grads`` runs at the end of
+        the cycle): a copy is summed. fsdp's are summed already (its
+        reduce-scatter runs at every backward)."""
+        if self._accum_count == 0:
+            return {}
+        if self.sharded:
+            grads = [None if p.grad is None
+                     else self._whole(p.grad, True) if full
+                     else p.grad.detach().clone() for p in self._params]
+        elif is_dist():
+            grads = self._summed_grads(inplace=False)
+        else:
+            grads = [None if p.grad is None else p.grad.detach().clone()
+                     for p in self._params]
+        return {n: (g.cpu() if full else g)
+                for n, g in zip(self._param_names, grads) if g is not None}
+
+    def _restore_accum(self, count: int, grads: Dict[str, torch.Tensor]):
+        """Resume a ``grad_accum`` cycle: the saved sum on rank 0 and zeros
+        on the other data-parallel ranks (their sum is the saved sum), each
+        rank's shard of it under fsdp; a parameter without a saved gradient
+        has none on any rank."""
+        count = int(count or 0)
+        if count >= self._grad_accum:
+            raise ValueError(
+                f"the checkpoint holds {count} steps of a grad_accum cycle; "
+                f"train.grad_accum={self._grad_accum}")
+        for name, p in zip(self._param_names, self._params):
+            g = grads.get(name) if count else None
+            if g is None:
+                p.grad = None
+            elif self.sharded or self.rank == 0:
+                p.grad = self._shard_like(g, p)
+            else:
+                p.grad = torch.zeros_like(p)
+        self._accum_count = count
+
     def save_model_dict(self, path: Optional[Path] = None):
-        """Every rank calls it (the ranks' dropout generator states are
-        gathered); rank 0 writes; every rank returns once the file is in
-        place."""
+        """Every rank calls it. The pickle backend: the state is gathered
+        (fsdp's shards whole, the grad_accum cycle's partial gradients
+        summed) and rank 0 writes; every rank returns once the file is in
+        place. The orbax backend: every rank hands its shards to the
+        collective asynchronous save (committed by the next save or
+        ``ckpt_backend.wait()``)."""
         path = Path(path) if path else self.model_file
-        rng_by_rank = all_gather_object(self.dropout_gen.get_state())
-        if self.is_main:
-            model_state = {k: v.detach().cpu()
-                           for k, v in self.model.state_dict().items()}
-            opt_state = (self.optimizer.state_dict()
-                         if self.optimizer is not None else None)
-            meta = {
-                "num_it": self.num_it,
-                "num_epoch": self.num_epoch,
-                "cfgtxt": json.dumps(self.cfg.to_dict()),
-                "best_met": self.best_met,
-                "scheduler_state_dict": {"plateau_wait": self.plateau_wait,
-                                         "lr": self._lr},
-                "dropout_rng": rng_by_rank[0],
-                "world_size": self.world_size,
-            }
-            if self.world_size > 1:
-                meta["dropout_rng_by_rank"] = rng_by_rank
-            self.ckpt_backend.save(path, model_state, opt_state, meta)
+        backend = self.ckpt_backend
+        full = not backend.collective
+        meta = {
+            "num_it": self.num_it,
+            "num_epoch": self.num_epoch,
+            "cfgtxt": json.dumps(self.cfg.to_dict()),
+            "best_met": self.best_met,
+            "scheduler_state_dict": {"plateau_wait": self.plateau_wait,
+                                     "lr": self._lr},
+            "dropout_rng": self.dropout_gen.get_state(),
+            "world_size": self.world_size,
+            "accum_count": self._accum_count,
+        }
+        # fsdp's gathers and the data-parallel sum of a cycle in flight are
+        # collectives; the rest is needed where it is written
+        writes = backend.collective or self.is_main
+        model_state = (self._model_state(full)
+                       if writes or self.sharded else None)
+        opt_state = self._opt_state(full) if writes or self.sharded else None
+        accum = self._accum_state(full)
+        if writes:
+            backend.save(path, model_state, opt_state, meta, accum)
         if self._stale_preempt is not None and path == self.model_file:
             # a newer checkpoint now lies where resume reads
             stale, self._stale_preempt = self._stale_preempt, None
-            if self.is_main:
-                self.ckpt_backend.delete(stale)
+            if backend.collective or self.is_main:
+                backend.delete(stale)
         synchronize()
 
     def load_model_dict(self, resume_path: str, load_opt: bool = False):
-        """Restore a checkpoint written by any number of processes: it holds
-        whole tensors (model, Adam's moments, BatchNorm statistics) and the
-        counters, which load as they are. Rank r takes the dropout
-        generator state that rank r saved; a rank the saving run did not
-        have draws from a generator seeded from ``(train.seed, rank,
-        num_it)`` (a one-process checkpoint's state is rank 0's). A resize
+        """Restore a checkpoint written by any number of processes on any
+        mesh: the backends return whole tensors (model, Adam's moments,
+        BatchNorm statistics, the gradients of a grad_accum cycle in
+        flight), which load into this run's layout (its shards under
+        fsdp), and the counters. Every rank takes the one dropout generator
+        state (a checkpoint written when each rank had its own generator
+        also holds ``dropout_rng_by_rank``; its ``dropout_rng`` is rank
+        0's, which every rank takes). A resize
         needs the new number of ranks to divide the global batches, which
-        ``build_learner`` holds. Resumes happen at epoch boundaries, or
-        from a preemption at a step boundary: a checkpoint holds no
-        gradient of a ``train.grad_accum`` cycle in flight (neither does
-        the JAX package's)."""
+        ``build_learner`` holds; the ranks' steps do not depend on their
+        number, so the resumed run is the straight run on the new ranks.
+        With ``load_opt`` the optimizer state and a ``grad_accum`` cycle in
+        flight (its count and summed gradients, as ``optax.MultiSteps``'
+        ``mini_step`` and ``acc_grads`` in the JAX package's checkpoint)
+        are restored, so the next update equals the straight run's."""
         loaded = self.ckpt_backend.load(resume_path)
         if loaded is None:
             self.logger.info("no checkpoint at %s; starting fresh",
@@ -526,31 +671,29 @@ class Learner:
             return
         meta = loaded["meta"]
         saved_world = int(meta.get("world_size", 1))
-        self.model.load_state_dict(loaded["model"], strict=True)
+        target = self.model.state_dict()
+        self.model.load_state_dict(
+            {k: self._shard_like(v, target[k]) if k in target else v
+             for k, v in loaded["model"].items()}, strict=True)
         self.num_it = meta.get("num_it", 0)
         self.num_epoch = meta.get("num_epoch", 0)
         self.best_met = meta.get("best_met", None)
-        rngs = meta.get("dropout_rng_by_rank") or [meta.get("dropout_rng")]
-        if self.rank < len(rngs) and rngs[self.rank] is not None:
-            self.dropout_gen.set_state(rngs[self.rank])
-        else:
-            self.dropout_gen.manual_seed(dropout_seed(
-                self.cfg.train.seed, self.rank, self.num_it))
+        if meta.get("dropout_rng") is not None:
+            self.dropout_gen.set_state(meta["dropout_rng"])
         if saved_world != self.world_size:
             self.update_log_file(
                 f"resumed a {saved_world}-process checkpoint on "
-                f"{self.world_size} processes: each rank's data shard and "
-                "dropout stream differ from the original run's")
+                f"{self.world_size} processes")
         if load_opt and self.ckpt_backend.has_opt(loaded):
             sched = meta.get("scheduler_state_dict") or {}
             self.plateau_wait = int(sched.get("plateau_wait", 0))
+            pending = {"opt": loaded["opt"], "lr": sched.get("lr"),
+                       "accum_count": meta.get("accum_count", 0),
+                       "accum": loaded.get("accum") or {}}
             if self.optimizer is None:
                 # the optimizer is made at fit(); prepare_optimizer takes it
-                self._pending_opt = loaded["opt"]
-                self._pending_lr = sched.get("lr")
+                self._pending_opt = pending
             else:
-                self.optimizer.load_state_dict(loaded["opt"])
-                if sched.get("lr") is not None:
-                    self._set_lr(float(sched["lr"]))
+                self._restore_opt(pending)
         self.logger.info("resumed from %s at epoch %d it %d", resume_path,
                          self.num_epoch, self.num_it)
