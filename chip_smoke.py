@@ -217,9 +217,26 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    epoch 1 through ``ckpt_backend=orbax`` (torch.distributed.checkpoint,
    generations behind ``LIVE``), epoch 2 resumed on one NCCL rank without
    fsdp: against phase 28's straight run within phase 28's limits, 20
-   forward and 10 backward launches an epoch in each run.
+   forward and 10 backward launches an epoch in each run;
+32. tensor parallelism: 2 gloo ranks on cuda:0 on a ``[1, 2]`` ``data`` x
+   ``model`` mesh (each rank 4 of the 8 heads and 1024 of the 2048 hidden
+   columns), one torchrun launch, against one process in this process:
+   ``sfpret_txe_txd_vbarg`` at d 1024 in float32 with dropout 0.1 (also on
+   the attention probabilities and the FFN activation, the sites inside
+   the split region) trained one step of 16 videos through
+   ``vidsitu_tpu_torch.main`` and validated at beam 5 on the reorder
+   route: the first-step loss within DP_LOSS_RTOL, the split leaves'
+   gradients gathered whole within TP_GRAD_RTOL of the largest, one
+   ``beam_gather_rows`` launch per decode step on each rank, each reorder
+   of a rank's 4-head cache bitwise equal to ``index_select``, at least
+   ROUTE_AGREEMENT of the validation events equal to one process's; a
+   one-step pair on ``build_learner``: the TP loss within DP_LOSS_RTOL,
+   and with each rank drawing a dropout mask of its own slice's shape (the
+   control) outside it; one ``rob_evrel`` step at roberta-base widths (12
+   heads, ffn 3072) within DP_LOSS_RTOL; then the bf16 TP step and one
+   process's timed (recorded only) with the device-busy share.
 
-Phases 1-28 run as before, at the same depth and repeats. A child that
+Phases 1-31 run as before, at the same depth and repeats. A child that
 fails, a launch past DP_TIMEOUT_S or a disagreement fails the smoke.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
@@ -572,11 +589,12 @@ def beam_rows(gen, dev):
             + beam_idx).reshape(-1)
 
 
-def cache_leaves(gen, length, dtype, dev):
+def cache_leaves(gen, length, dtype, dev, heads=HEADS):
     """The reorder-mode cache's 12 float leaves, in cache order: per layer
-    self K/V (rows, H, L, Dh) and cross K/V (rows, H, 1, Dh)."""
+    self K/V (rows, H, L, Dh) and cross K/V (rows, H, 1, Dh); ``heads``
+    (H) is a rank's under tensor parallelism."""
     rows = EVENTS * BEAM
-    shapes = [(rows, HEADS, n, HEAD_DIM) for n in (length, length, 1, 1)]
+    shapes = [(rows, heads, n, HEAD_DIM) for n in (length, length, 1, 1)]
     return [torch.randn(sh, generator=gen, device=dev).to(dtype)
             for _ in range(LAYERS) for sh in shapes]
 
@@ -2054,19 +2072,22 @@ def child_checks(task, dev, rank, dtype=torch.bfloat16):
                 errs[f"{A.bwd_kernel_entry(dtype, d)} {name} "
                      f"B={b}"] = e
     else:
+        # a rank of phase 32's model axis holds half the heads
+        heads = HEADS // TP_RANKS if task == "tp" else HEADS
         gen = torch.Generator(device=dev).manual_seed(24 + rank)
-        leaves = cache_leaves(gen, SELF_LENS[-1], torch.bfloat16, dev)
+        leaves = cache_leaves(gen, SELF_LENS[-1], torch.bfloat16, dev, heads)
         idx = beam_rows(gen, dev)
         out = B.beam_gather_rows(leaves, idx)
         ref = B.beam_gather_rows_reference(leaves, idx)
         assert all(torch.equal(o, r) for o, r in zip(out, ref))
-        errs[f"beam_gather_rows {EVENTS * BEAM} rows L={SELF_LENS[-1]}"] = 0.0
+        errs[f"beam_gather_rows {EVENTS * BEAM} rows L={SELF_LENS[-1]} "
+             f"H={heads}"] = 0.0
     torch.cuda.synchronize()
     return errs
 
 
 def dist_child(task, spec_path) -> int:
-    """One rank of a torchrun launch (phases 24-25, 28-31): join the process
+    """One rank of a torchrun launch (phases 24-25, 28-32): join the process
     group, run ``task`` through the port's entry point with every kernel
     count at 0, then check the task's kernels against their plain versions
     at this rank's shapes; write the rank's JSON result."""
@@ -2096,7 +2117,8 @@ def dist_child(task, spec_path) -> int:
     with (deterministic_algorithms() if spec.get("deterministic")
           else contextlib.nullcontext()):
         res = {"fit": child_fit, "srl": child_srl, "extract": child_extract,
-               "drop": child_drop, "fsdp": child_fsdp}[kind](spec, dev)
+               "drop": child_drop, "fsdp": child_fsdp,
+               "tp": child_tp}[kind](spec, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**{k: v for k, v in A.LAUNCHES_BY_ENTRY.items() if v},
@@ -2587,13 +2609,15 @@ FSDP_TIMED = 3  # timed updates of each variant, in turns
 
 
 def drop_steps(argv, dev, steps, start=0, resume=None, saves=None,
-               seed_apart=False):
+               seed_apart=False, local_masks=False):
     """Phase 29's runs: a Learner of ``argv`` (build_learner) takes
     ``steps`` train steps on this rank's share of the global batches
     ``start``, ``start + 1``, ... of epoch 0, after resuming ``resume``
     (optimizer and grad_accum cycle included) when given, saving after step
     n where ``saves`` names a path for n. ``seed_apart`` seeds each rank's
-    dropout generator from (train.seed + rank): the control."""
+    dropout generator from (train.seed + rank): the control. ``local_masks``
+    (phase 32's control) has each rank of a model axis draw a dropout mask
+    of its own slice's shape instead of its slice of the whole mask."""
     from itertools import islice
 
     from vidsitu_tpu_torch import main as port_main
@@ -2611,12 +2635,13 @@ def drop_steps(argv, dev, steps, start=0, resume=None, saves=None,
     if seed_apart:
         learner.dropout_gen.manual_seed(int(cfg.train.seed) + learner.rank)
     losses = []
-    for batch in islice(learner.data.train_dl, start, start + steps):
-        losses.append(float(learner.train_step(
-            batch_to_device(batch, learner.device))))
-        learner.num_it += 1
-        if len(losses) in saves:
-            learner.save_model_dict(saves[len(losses)])
+    with local_dropout_masks(local_masks):
+        for batch in islice(learner.data.train_dl, start, start + steps):
+            losses.append(float(learner.train_step(
+                batch_to_device(batch, learner.device))))
+            learner.num_it += 1
+            if len(losses) in saves:
+                learner.save_model_dict(saves[len(losses)])
     out = {"losses": losses, "accum_count": learner._accum_count}
     del learner
     torch.cuda.empty_cache()
@@ -2726,7 +2751,7 @@ def child_fsdp(spec, dev):
     # identities and their attention gradients zero (phase 18)
     sd = flax_to_state_dict(seeded_variables(learner.eval_model, 0))
     target = learner.model.state_dict()
-    learner.model.load_state_dict({k: learner._shard_like(v, target[k])
+    learner.model.load_state_dict({k: learner._shard_like(k, v, target[k])
                                    for k, v in sd.items()}, strict=True)
     learner.prepare_optimizer(float(cfg.train.lr))
     plain = copy.deepcopy(learner.eval_model)
@@ -2901,6 +2926,313 @@ def phase_fsdp_orbax(paths, root, straight):
             "drift_epoch1": rel1}
 
 
+# -- tensor parallelism (phase 32) --------------------------------------------
+TP_RANKS = 2  # the model axis: 2 gloo ranks on cuda:0, mesh [1, 2]
+TP_BS = 16  # phase 29's global batch: one step an epoch
+TP_MESH = ("--tpu.mesh_shape=[1, 2]",
+           "--tpu.mesh_axis_names=['data', 'model']")
+# the SRL configs' attention and activation dropout are 0: at 0.1 the sites
+# inside the split region draw too, and the control can part
+TP_RATES = ("--tx_dec.attention_dropout=0.1",
+            "--tx_dec.activation_dropout=0.1")
+# the split leaves' first-step gradients, of the largest: the geometric
+# middle of the first readings on the card, 1.961e-3 (the saturated video
+# encoder's self-attention q / k, where float32 reduction order moves the
+# gradient most; the decoder's leaves 3.8e-4 at most) and the local-mask
+# control's 0.602 (a guess of 1e-3 before any reading failed)
+TP_GRAD_RTOL = 0.034
+TP_TIMED = 5  # bf16 steps timed, each way
+
+
+@contextlib.contextmanager
+def local_dropout_masks(on):
+    """With ``on``, ``models.common.dropout`` ignores its ``split``: each
+    rank of a model axis draws a mask of its slice's shape."""
+    from vidsitu_tpu_torch.models import common
+
+    plain = common.dropout
+    if on:
+        common.dropout = (lambda x, rate, training, split=None:
+                          plain(x, rate, training))
+    try:
+        yield
+    finally:
+        common.dropout = plain
+
+
+@contextlib.contextmanager
+def first_update_grads(out):
+    """Fills ``out`` (name -> tensor on the CPU) with the gradients that the
+    first update of a Learner made in the block uses, for the leaves that a
+    model axis of TP_RANKS splits, whole (gathered over the model group)."""
+    from vidsitu_tpu_torch.parallel.tensor import tp_plan
+    from vidsitu_tpu_torch.train.learner import Learner
+
+    prep = Learner.prepare_optimizer
+
+    def prepare_optimizer(self, lr):
+        prep(self, lr)
+        step = self.optimizer.step
+        names = set(self.split.dims if self.split
+                    else tp_plan(self.model, TP_RANKS))
+
+        def first_step(*a, **kw):
+            if not out:
+                out.update({n: self._whole(n, p.grad, True) for n, p in
+                            zip(self._param_names, self._params)
+                            if n in names and p.grad is not None})
+            return step(*a, **kw)
+
+        self.optimizer.step = first_step
+
+    Learner.prepare_optimizer = prepare_optimizer
+    try:
+        yield out
+    finally:
+        Learner.prepare_optimizer = prep
+
+
+@contextlib.contextmanager
+def checked_reorders(out):
+    """Every beam reorder of the block through the row-gather kernel (the
+    launch the count sees), then held bitwise against ``index_select`` on
+    the same cache (not counted): ``out`` gets the reorders, the heads seen
+    and the largest difference."""
+    from vidsitu_tpu_torch.gen import beam
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    plain = beam.gather_rows
+    out.update(reorders=0, heads=set(), max_abs_err=0.0)
+
+    def gather_rows(leaves, rows):
+        got = plain(leaves, rows)
+        ref = B.beam_gather_rows_reference(leaves, rows)
+        out["reorders"] += 1
+        out["heads"] |= {x.shape[1] for x in leaves if x.dim() == 4}
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            out["max_abs_err"] = max(out["max_abs_err"], max(
+                (g.float() - r.float()).abs().max().item()
+                for g, r in zip(got, ref)))
+            out["max_abs_err"] = max(out["max_abs_err"], 1e-30)
+        return got
+
+    beam.gather_rows = gather_rows
+    try:
+        yield out
+    finally:
+        beam.gather_rows = plain
+        out["heads"] = sorted(out["heads"])
+
+
+def timed_learner_step(argv, dev):
+    """The Learner step of ``argv`` (build_learner; dropout on) on its first
+    batch: the median ms of TP_TIMED by CUDA events, and the device-busy
+    share of one more step (``torch.profiler``: this process's kernels over
+    its wall time)."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.bench import profile_step
+    # a torchrun child has not run main(), which sets the module's timers
+    from vidsitu_tpu_torch.timing import cuda_ms
+    from vidsitu_tpu_torch.train.build import build_learner
+    from vidsitu_tpu_torch.train.learner import batch_to_device
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    uid, overrides, _ = port_main.parse_cli(argv)
+    cfg = get_cfg_with_overrides(uid, **overrides)
+    learner = build_learner(cfg, uid, dev)
+    learner.prepare_optimizer(float(cfg.train.lr))
+    batch = batch_to_device(next(iter(learner.data.train_dl)),
+                            learner.device)
+
+    def step():
+        return learner.train_step(batch)
+
+    ms = float(np.median(cuda_ms(step, TP_TIMED)))
+    rows, wall = profile_step(step, learner.device)
+    busy = sum(e.self_device_time_total for e in rows) / 1e6 / wall
+    del learner, batch
+    torch.cuda.empty_cache()
+    return ms, busy
+
+
+def child_tp(spec, dev):
+    """Phase 32 on one rank of the model axis: the SRL fit through the
+    entry point (its first update's split gradients held against one
+    process's on rank 0), the one-step pair and its control, the evrel
+    step, the timed bf16 step."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.ops import beam_gather as B
+    from vidsitu_tpu_torch.parallel import collectives as C
+
+    grads, reorders = {}, {}
+    with recorded_step_losses() as losses, first_update_grads(grads), \
+            checked_reorders(reorders):
+        res = port_main.main(spec["main"])
+    out = {"launches_main": B.LAUNCHES, "first_loss": losses[0],
+           "steps": res["evaluator"].generate_fn.steps,
+           "pred": str(res["pred_dir"] / "valid_0.pkl"), **reorders}
+    del res
+    torch.cuda.empty_cache()
+    drop, ctl = {}, {}
+    with first_update_grads(drop):
+        out["drop_loss"] = drop_steps(spec["drop"], dev, 1)["losses"][0]
+    with first_update_grads(ctl):
+        out["local_masks_loss"] = drop_steps(spec["drop"], dev, 1,
+                                             local_masks=True)["losses"][0]
+    if C.get_rank() == 0:
+        ref = torch.load(spec["ref_grads"], weights_only=True)
+        for key, got in (("grad", grads), ("drop_grad", drop),
+                         ("control_grad", ctl)):
+            assert set(ref) == set(got), sorted(set(ref) ^ set(got))[:5]
+            out[f"{key}_rel_err"], out[f"{key}_worst"] = split_grad_err(
+                got, ref)
+        out["grad_leaves"] = len(ref)
+        del ref
+    del grads, drop, ctl
+    out["evrel_loss"] = drop_steps(spec["evrel"], dev, 1)["losses"][0]
+    out["bf16_ms"], out["bf16_busy"] = timed_learner_step(spec["bf16"], dev)
+    return out
+
+
+def split_grad_err(got, ref):
+    """The largest difference of the split leaves' gradients over the
+    largest reference gradient (model-wide), and the three leaves that
+    differ most, each with its difference and its own scale (both of the
+    model-wide scale)."""
+    scale = max(float(v.abs().max()) for v in ref.values())
+    errs = {n: float((got[n] - ref[n]).abs().max()) / scale for n in ref}
+    worst = sorted(errs, key=lambda n: -errs[n])[:3]
+    return max(errs.values()), [
+        (n, errs[n], float(ref[n].abs().max()) / scale) for n in worst]
+
+
+def pkl_events(path):
+    with open(path, "rb") as f:
+        return {(p["ann_idx"], ev): out for p in pickle.load(f)
+                for ev, out in p["vb_output"].items()}
+
+
+def phase_tp(root, dev):
+    """Phase 32: tensor parallelism on the card (see the module docstring):
+    one process's runs here on ``dev``, then one torchrun launch of 2 gloo
+    ranks on ``dev`` on a [1, 2] data x model mesh."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.data.synth import make_synth_dataset
+    from vidsitu_tpu_torch.ops import beam_gather as B
+
+    t0 = time.perf_counter()
+    paths = make_synth_dataset(root / "data", n_train=TP_BS, n_valid=8,
+                               n_test=1, seed=37)
+
+    def srl(tag, *extra):
+        return lang_train_args(
+            f"chip_smoke_tp_{tag}", "vb_arg", "sfpret_txe_txd_vbarg", paths,
+            root, "--train.dtype=float32", f"--train.bs={TP_BS}",
+            f"--train.bsv={TP_BS}", "--train.epochs=1",
+            "--run_final_val=False", "--gen.beam_size=5",
+            "--tpu.ancestry_beam=False", *TP_RATES,
+            f"--misc.tmp_path={root / tag}", f"--device={dev}", *extra)
+
+    def evrel(tag):
+        return lang_train_args(
+            f"chip_smoke_tp_ev_{tag}", "evrel", "rob_evrel", paths, root,
+            "--train.dtype=float32", f"--misc.tmp_path={root / tag}",
+            f"--device={dev}")
+
+    def tp(argv):
+        return argv + [*TP_MESH, "--dist_backend=gloo"]
+
+    grads, reorders = {}, {}
+    B.LAUNCHES = 0
+    with recorded_step_losses() as losses, first_update_grads(grads), \
+            checked_reorders(reorders):
+        res = port_main.main(srl("one"))
+    one = {"first_loss": losses[0], "launches": B.LAUNCHES,
+           "steps": res["evaluator"].generate_fn.steps,
+           "pred": res["pred_dir"] / "valid_0.pkl", **reorders}
+    torch.save(grads, root / "one_grads.pt")
+    del grads, res
+    torch.cuda.empty_cache()
+    one["drop_loss"] = drop_steps(srl("one_drop"), dev, 1)["losses"][0]
+    one["evrel_loss"] = drop_steps(evrel("one_ev"), dev, 1)["losses"][0]
+    one["bf16_ms"], one["bf16_busy"] = timed_learner_step(
+        srl("one_bf16", "--train.dtype=bfloat16"), dev)
+    one_wall = time.perf_counter() - t0
+    ranks, wall = torchrun("tp", TP_RANKS, {
+        "device": str(dev), "backend": "gloo", "main": tp(srl("tp")),
+        "drop": tp(srl("tp_drop")), "evrel": tp(evrel("tp_ev")),
+        "bf16": tp(srl("tp_bf16", "--train.dtype=bfloat16")),
+        "ref_grads": str(root / "one_grads.pt")}, root)
+    r0 = ranks[0]
+
+    def rel(key):
+        return abs(r0[key] - one[key]) / abs(one[key])
+
+    want, got = pkl_events(one["pred"]), pkl_events(r0["pred"])
+    agree = sum(got.get(k) == v for k, v in want.items()) / len(want)
+    ctl = abs(r0["local_masks_loss"] - one["drop_loss"]) / abs(
+        one["drop_loss"])
+    log(f"[32 tp] sfpret_txe_txd_vbarg d 1024 on a [1, 2] data x model mesh "
+        f"(2 gloo ranks on cuda:0, 4 of 8 heads and 1024 of 2048 hidden "
+        f"columns a rank), float32, dropout 0.1 at every site, {TP_BS} "
+        f"videos: first-step loss {[r['first_loss'] for r in ranks]} against "
+        f"one process's {one['first_loss']!r} (relative "
+        f"{rel('first_loss'):.2e}, limit {DP_LOSS_RTOL:g}); "
+        f"{r0['grad_leaves']} split leaves' gradients gathered whole: "
+        f"{r0['grad_rel_err']:.3e} of the largest (limit {TP_GRAD_RTOL:g}; "
+        f"leaves that differ most, difference and own scale of the largest: "
+        f"{r0['grad_worst']}); the same on build_learner "
+        f"{r0['drop_grad_rel_err']:.3e}, its control "
+        f"{r0['control_grad_rel_err']:.3e} ({r0['control_grad_worst']})")
+    log(f"[32 tp] validation at beam 5, reorder route: decode steps "
+        f"{[r['steps'] for r in ranks]} (one process {one['steps']}), "
+        f"row-gather launches by rank {[r['launches_main'] for r in ranks]}"
+        f" on caches of {[r['heads'] for r in ranks]} heads (one process "
+        f"{one['launches']} on {one['heads']}), every reorder against "
+        f"index_select: max abs diff "
+        f"{[r['max_abs_err'] for r in ranks]}; events equal to one "
+        f"process's {agree:.4f} (limit {ROUTE_AGREEMENT:g})")
+    log(f"[32 tp] one step on build_learner: loss {r0['drop_loss']!r} "
+        f"against {one['drop_loss']!r} (relative {rel('drop_loss'):.2e}); "
+        f"each rank drawing its own slice's mask (control) "
+        f"{r0['local_masks_loss']!r} (relative {ctl:.2e}); rob_evrel "
+        f"(12 heads, ffn 3072) {r0['evrel_loss']!r} against "
+        f"{one['evrel_loss']!r} (relative {rel('evrel_loss'):.2e})")
+    log(f"[32 tp] bf16 step of {TP_BS} videos (dropout on), median of "
+        f"{TP_TIMED}: 2 TP ranks on one card {[r['bf16_ms'] for r in ranks]}"
+        f" ms, device busy {[r['bf16_busy'] for r in ranks]} (each rank's "
+        f"own kernels); one process {one['bf16_ms']:.2f} ms, busy "
+        f"{one['bf16_busy']:.3f}; walls: one process {one_wall:.1f} s, "
+        f"torchrun {wall:.1f} s")
+    for key in ("first_loss", "drop_loss", "evrel_loss"):
+        assert len({r[key] for r in ranks}) == 1, (key, ranks)
+        assert rel(key) <= DP_LOSS_RTOL, (key, r0[key], one[key])
+    assert ctl > DP_LOSS_RTOL, (r0["local_masks_loss"], one["drop_loss"])
+    for key in ("grad_rel_err", "drop_grad_rel_err"):
+        assert r0[key] <= TP_GRAD_RTOL < r0["control_grad_rel_err"], (
+            key, r0[key], r0["control_grad_rel_err"])
+    for r in ranks:
+        assert r["steps"] == r0["steps"] and sum(r["steps"]) > 0
+        assert r["launches_main"] == r["reorders"] == sum(r["steps"]), r
+        assert r["heads"] == [HEADS // TP_RANKS], r["heads"]
+        assert r["max_abs_err"] == 0.0, r["max_abs_err"]
+    assert one["heads"] == [HEADS] and one["launches"] == sum(one["steps"])
+    assert agree >= ROUTE_AGREEMENT, agree
+    return {"launches": [r["launches_main"] for r in ranks],
+            "max_abs_err": [r["max_abs_err"] for r in ranks],
+            "checks": [r["checks"] for r in ranks],
+            "first_loss_rel_err": rel("first_loss"),
+            "grad_rel_err": r0["grad_rel_err"],
+            "control_grad_rel_err": r0["control_grad_rel_err"],
+            "step_loss_rel_err": rel("drop_loss"), "control_rel_err": ctl,
+            "evrel_loss_rel_err": rel("evrel_loss"),
+            "events_agree": agree,
+            "bf16_ms": [r["bf16_ms"] for r in ranks],
+            "bf16_busy": [r["bf16_busy"] for r in ranks],
+            "one_bf16_ms": one["bf16_ms"], "one_bf16_busy": one["bf16_busy"],
+            "wall_s": wall}
+
+
 @contextlib.contextmanager
 def deterministic_algorithms():
     """PyTorch's deterministic algorithms (cuDNN's among them, and the
@@ -3056,6 +3388,11 @@ def main() -> int:
         fsdp = phase_fsdp_update(vb_paths, vb_root)
         fsdp_orbax = phase_fsdp_orbax(vb_paths, vb_root, straight)
         del straight
+    # tensor parallelism: each rank's counts set to 0 just before its entry
+    # point (dist_child); the launches are those of its main.py run
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tp = phase_tp(Path(tmp), dev)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -3146,7 +3483,9 @@ def main() -> int:
                    launches_dp={k: v[0] for k, v in
                                 dp["beam_gather_rows"].items()},
                    max_abs_err_dp={k: v[1] for k, v in
-                                   dp["beam_gather_rows"].items()}),
+                                   dp["beam_gather_rows"].items()},
+                   launches_tp=tp["launches"],
+                   max_abs_err_tp=tp["max_abs_err"], tensor_parallel=tp),
         *(kernel_row(
             entry, "fused_bottleneck.cu", replaces, slice_launches[entry],
             fused_err[entry], fb256[key], fused_plain_ms, *fb_bound,

@@ -12,8 +12,10 @@
   * ``reduce_dict`` / ``reduce_dict_corr`` in float64 (the JAX package's
     gather drops to float32: 1 + 2**-40 would come back as 1),
     ``broadcast_object``, ``all_gather_object`` and the ``data`` mesh;
-  * ``--device=cuda`` on a LOCAL_RANK beyond the host's cards and a
-    ``model`` mesh axis raise; so does the evaluators' merge
+  * ``--device=cuda`` on a LOCAL_RANK beyond the host's cards and an
+    unknown mesh axis raise; a ``model`` axis makes a mesh whose data and
+    model groups are the ranks of one model and one data coordinate; the
+    evaluators' merge raises
     when the run token's broadcast fails (the JAX package falls back to a
     per-rank token, evaluators.py:118-124, and its merge then waits for
     markers that never come).
@@ -155,12 +157,23 @@ def test_cuda_rank_beyond_the_host_cards_raises(monkeypatch):
 
 @pytest.mark.parametrize("axes", [pytest.param(["data", "model"], id="axes1")])
 def test_fsdp_and_model_axes_raise(axes, tmp_path):
-    """The ``model`` axis (tensor parallelism) raises; the ``fsdp`` axis is
-    ported (tests/test_torch_fsdp.py)."""
-    cfg = get_cfg_with_overrides("t", **{"tpu.mesh_axis_names": str(axes),
-                                         "tpu.mesh_shape": "[-1, 2]"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        M.make_mesh(cfg)
+    """Only an unknown axis raises now: the ``model`` axis (tensor
+    parallelism, tests/test_torch_tensor_parallel.py) makes a 2 x 2 mesh
+    over 4 ranks whose data group is the ranks of this rank's model
+    coordinate (group rank = data coordinate) and whose model group is the
+    ranks of its data coordinate; the ``fsdp`` axis is ported
+    (tests/test_torch_fsdp.py)."""
+    over = {"tpu.mesh_axis_names": str(axes), "tpu.mesh_shape": "[-1, 2]"}
+    outs, _ = launch("mesh", {"cfg": over}, tmp_path, nproc=4)
+    for r, out in enumerate(outs):
+        d, m = divmod(r, 2)
+        assert out["shape"] == [2, 2] and out["data_extent"] == 2
+        assert out["data"] == [d, 2, [m, m + 2]]
+        assert out["model"] == [m, 2, [2 * d, 2 * d + 1]]
+    bad = get_cfg_with_overrides("t", **{
+        **over, "tpu.mesh_axis_names": str(["data", "tensor"])})
+    with pytest.raises(ValueError, match="at most once"):
+        M.make_mesh(bad)
 
 
 def test_merge_raises_when_the_token_broadcast_fails(monkeypatch, tmp_path):

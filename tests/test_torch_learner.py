@@ -101,12 +101,17 @@ def test_cli_without_device_raises_where_no_gpu(env, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(env):
-    """Tensor parallelism (a ``model`` mesh axis) is not ported; the orbax
-    backend is (its counterpart on torch.distributed.checkpoint)."""
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        port_main.main(cli_args(env, "tp", "--device=cpu",
-                                "--tpu.mesh_axis_names=['data', 'model']",
-                                "--tpu.mesh_shape=[1, 1]"))
+    """Nothing is refused now: a ``['data', 'model']`` fit on ``[1, 1]``
+    runs on one process (tensor parallelism over a model axis of extent 1
+    splits nothing; tests/test_torch_tp_train.py holds larger ones), and
+    the orbax backend is ported (its counterpart on
+    torch.distributed.checkpoint)."""
+    res = port_main.main(cli_args(env, "tp", "--device=cpu",
+                                  "--tpu.mesh_axis_names=['data', 'model']",
+                                  "--tpu.mesh_shape=[1, 1]"))
+    learner = res["learner"]
+    assert learner.num_epoch == 1 and learner.split is None
+    assert learner.model_file.is_file()
     assert get_backend("orbax").name == "orbax"
 
 

@@ -194,6 +194,7 @@ REIMPLEMENTED = {
     "models/rel_transformer.py": ("models/rel_transformer.py", "flax"),
     "parallel/collectives.py": ("parallel/collectives.py", "jax"),
     "parallel/mesh.py": ("parallel/mesh.py", "jax"),
+    "parallel/tensor.py": ("parallel/mesh.py", "jax"),
 }
 
 

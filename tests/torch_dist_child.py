@@ -12,15 +12,18 @@ process and hand over the port's inputs as files.
 
 Modes:
   * ``steps``: for each case file (``torch.save`` of the model, its config
-    overrides and each step's batch for every rank), a ``Learner`` on this
-    rank's batches (its model sharded first when the overrides name an
-    ``fsdp`` mesh axis), optionally resuming a checkpoint first and saving
-    one after; the global losses, the gradients the update used, the state
-    dict after the steps (whole tensors) and the dropout generator's
-    states (``whole_on_rank0``: the gradients and the state dict on rank 0
-    only, the other ranks' being the same gathered tensors); then, for
-    each ``builds`` entry, the error ``build_learner`` raises on its
-    overrides;
+    overrides and each step's batch for every data coordinate), a
+    ``Learner`` on this rank's batches (its model split first when the
+    overrides name a ``model`` mesh axis, then sharded when they name an
+    ``fsdp`` axis), optionally resuming a checkpoint first and saving one
+    after, optionally validating after (SRL decoding through ``EvalB_Gen``
+    with a counting stand-in for the row gather); the global losses, the
+    gradients the update used, the state dict after the steps (whole
+    tensors) and the dropout generator's states (``whole_on_rank0``: the
+    gradients and the state dict on rank 0 only, the other ranks' being the
+    same gathered tensors); then, for each ``builds`` entry, the error
+    ``build_learner`` raises on its overrides, and with ``modules`` the
+    split attention and FFN modules' outputs and gradients;
   * ``main``: ``vidsitu_tpu_torch.main.main(argv)`` for each argv in turn,
     in the one process group; optionally SIGTERM sent by one rank to itself
     when its train step ``kill_at_it`` starts, or one rank's SRL beam search
@@ -28,9 +31,12 @@ Modes:
     different numbers of steps);
   * ``extract``: ``vidsitu_tpu_torch.extract.main(argv)``;
   * ``collectives``: ``parallel.collectives`` and ``parallel.mesh`` on
-    float64 values that float32 cannot hold.
+    float64 values that float32 cannot hold;
+  * ``mesh``: the mesh of ``spec["cfg"]``'s axes and this rank's data and
+    model groups.
 """
 
+import contextlib
 import json
 import os
 import signal
@@ -100,14 +106,19 @@ def whole(t):
 def run_case(case, rank, tmp):
     """One case of mode ``steps`` on this rank (also called in the test's
     own process, rank 0 of one): a ``Learner`` that optionally resumes a
-    checkpoint (``resume``, optimizer included) before its steps and saves
-    one (``save``) after them; every step ticks ``num_it`` as an epoch's
-    steps do. ``divide`` sets FSDP2's gradient divide factor of every
-    wrapped module but the root back to this value (a control)."""
+    checkpoint (``resume``, optimizer included) before its steps, saves one
+    (``save``) after them and validates (``validate``, see
+    :func:`validate_case`); every step ticks ``num_it`` as an epoch's steps
+    do, on the batch of this rank's data coordinate. ``divide`` sets
+    FSDP2's gradient divide factor of every wrapped module but the root
+    back to this value (a control); ``local_masks`` has each split module
+    draw a dropout mask of its own slice's shape rather than its slice of
+    the whole mask (a control)."""
     from torch.distributed.fsdp import FSDPModule
     from torch.distributed.tensor import DTensor
 
     from vidsitu_tpu_torch.parallel.mesh import make_mesh, shard_model
+    from vidsitu_tpu_torch.parallel.tensor import shard_tp
     from vidsitu_tpu_torch.train.learner import Learner
     from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
 
@@ -115,8 +126,13 @@ def run_case(case, rank, tmp):
     cfg = get_cfg_with_overrides("t", **{"misc.tmp_path": tmp,
                                          **case["cfg"]})
     layout = None
-    if "fsdp" in cfg.tpu.mesh_axis_names:
+    axes = cfg.tpu.mesh_axis_names
+    split = None
+    if "model" in axes or "fsdp" in axes:
         mesh = make_mesh(cfg)
+        split = shard_tp(model, mesh)
+    local_shapes = {n: list(p.shape) for n, p in model.named_parameters()}
+    if "fsdp" in axes:
         shard_model(model, mesh)
         if case.get("divide"):
             for m in model.modules():
@@ -146,25 +162,126 @@ def run_case(case, rank, tmp):
             and all(a is b for a, b in zip(opt_params, learner._params)))
 
     def keep_grads_then_step(step=step, grads=grads, model=model):
-        grads.update({n: whole(torch.zeros_like(p) if p.grad is None
-                               else p.grad.clone())
+        grads.update({n: learner._whole(n, torch.zeros_like(p) if p.grad
+                                        is None else p.grad.clone(), True)
                       for n, p in model.named_parameters()})
         step()
 
     learner.optimizer.step = keep_grads_then_step
     losses = []
-    for per_rank in case["batches"]:
-        losses.append(float(learner.train_step(to_torch(per_rank[rank]))))
-        learner.num_it += 1
+    with local_masks(case.get("local_masks")):
+        for per_rank in case["batches"]:
+            losses.append(float(learner.train_step(
+                to_torch(per_rank[learner.data_rank]))))
+            learner.num_it += 1
     if case.get("save"):
         learner.save_model_dict(case["save"])
         learner.ckpt_backend.wait()
-    return {"losses": losses, "grads": grads,
-            "state_dict": {k: whole(v).clone() for k, v in
-                           model.state_dict().items()},
-            "num_it": learner.num_it, "rng_loaded": rng_loaded,
-            "rng": learner.dropout_gen.get_state(), "layout": layout,
-            "accum_count": learner._accum_count}
+    out = {"losses": losses, "grads": grads,
+           "state_dict": {k: learner._whole(k, v, True).clone() for k, v in
+                          model.state_dict().items()},
+           "num_it": learner.num_it, "rng_loaded": rng_loaded,
+           "rng": learner.dropout_gen.get_state(), "layout": layout,
+           "accum_count": learner._accum_count,
+           "local_shapes": local_shapes,
+           "split_dims": split.dims if split else {}}
+    if case.get("validate"):
+        out["validate"] = validate_case(learner, cfg, model)
+    return out
+
+
+@contextlib.contextmanager
+def local_masks(on):
+    """With ``on``, ``models.common.dropout`` ignores ``split``: each rank
+    draws a mask of its slice's shape."""
+    from vidsitu_tpu_torch.models import common
+
+    plain = common.dropout
+    if on:
+        common.dropout = (lambda x, rate, training, split=None:
+                          plain(x, rate, training))
+    try:
+        yield
+    finally:
+        common.dropout = plain
+
+
+def validate_case(learner, cfg, model):
+    """SRL validation of the case's model wired as ``build_learner`` wires
+    it: this rank's loader shard by data coordinate, ``EvalB_Gen`` over the
+    model's generator, ``Learner.validate``. A counting stand-in for the
+    row gather records each reorder's leaves and heads. Returns the
+    metrics, the decode steps, the reorders and their heads, and rank 0's
+    merged pickle."""
+    import pickle
+
+    from vidsitu_tpu_torch.data import get_data
+    from vidsitu_tpu_torch.evaluation.evaluators import EvalB_Gen
+    from vidsitu_tpu_torch.gen import beam
+    from vidsitu_tpu_torch.models.selector import build_srl_generate_fn
+
+    data = get_data(cfg, num_shards=C.data_world_size(),
+                    shard_id=C.data_rank())
+    comm = data.valid_dl.dataset.comm
+    gen = build_srl_generate_fn(cfg, comm, model)
+    learner.data = data
+    learner.eval_fn = EvalB_Gen(cfg, comm, gen, "cpu", rank=C.data_rank(),
+                                world_size=C.data_world_size(),
+                                model_rank=C.model_rank())
+    heads, plain = [], beam.gather_rows
+
+    def counting(leaves, rows):
+        heads.append(sorted({x.shape[1] for x in leaves if x.dim() == 4}))
+        return plain(leaves, rows)
+
+    beam.gather_rows = counting
+    try:
+        loss, acc, _ = learner.validate()
+    finally:
+        beam.gather_rows = plain
+    pkl = learner.predictions_dir / "valid_0.pkl"
+    pred = None
+    if C.get_rank() == 0:
+        with open(pkl, "rb") as f:
+            pred = pickle.load(f)
+    return {"acc": acc, "steps": gen.steps, "gathers": len(heads),
+            "heads": heads, "pred": pred}
+
+
+def modules_check(spec):
+    """The split attention and FFN modules of ``spec`` (float64, seeded,
+    dropout on) on this rank: their outputs, the input's gradient and the
+    parameters' gradients gathered whole, and ``reduce_from_model`` /
+    ``copy_to_model`` on a tensor of this rank's value."""
+    from vidsitu_tpu_torch.models import common
+    from vidsitu_tpu_torch.parallel import tensor as T
+    from vidsitu_tpu_torch.parallel.mesh import make_mesh
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    res = {}
+    mesh = make_mesh(get_cfg_with_overrides("t", **spec["cfg"]))
+    for name, path in spec["cases"].items():
+        case = torch.load(path, weights_only=False)
+        mod, x = case["module"], case["x"].clone().requires_grad_(True)
+        split = T.shard_tp(mod, mesh)
+        mod.train()
+        with common.dropout_generator(torch.Generator().manual_seed(5)):
+            y = mod(*([x, x] if case["attention"] else [x]))
+            y = y[0] if isinstance(y, tuple) else y
+        (y * case["dy"]).sum().backward()
+        res[name] = {"y": y.detach(), "dx": x.grad,
+                     "heads": getattr(mod, "n_heads", None),
+                     "grads": {n: split.whole(n, p.grad)
+                               for n, p in mod.named_parameters()}}
+    v = torch.full((3,), float(C.get_rank() + 1), dtype=torch.float64,
+                   requires_grad=True)
+    fwd = T.reduce_from_model(v * 1.0)
+    (fwd * torch.arange(3.0, dtype=torch.float64)).sum().backward()
+    w = torch.full((3,), 2.0, dtype=torch.float64, requires_grad=True)
+    (T.copy_to_model(w) * float(C.get_rank() + 1)).sum().backward()
+    res["reduce"] = {"fwd": fwd.detach(), "grad": v.grad}
+    res["copy"] = {"grad": w.grad}
+    return res
 
 
 def mode_steps(spec, rank):
@@ -175,6 +292,8 @@ def mode_steps(spec, rank):
         if rank and spec.get("whole_on_rank0"):
             res.update(grads=None, state_dict=None)
         out[case["name"]] = res
+    if spec.get("modules"):
+        out["modules"] = modules_check(spec["modules"])
     for name, overrides in spec.get("builds", {}).items():
         # build_learner on this group: the error it raises, if any
         from vidsitu_tpu_torch.train.build import build_learner
@@ -256,6 +375,24 @@ def mode_collectives(spec, rank):
     }
 
 
+def mode_mesh(spec, rank):
+    import torch.distributed as dist
+
+    from vidsitu_tpu_torch.parallel.mesh import data_extent, make_mesh
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    mesh = make_mesh(get_cfg_with_overrides("t", **spec["cfg"]))
+
+    def ranks(group):
+        return dist.get_process_group_ranks(group) if group else None
+
+    return {"shape": list(mesh.mesh.shape), "data_extent": data_extent(mesh),
+            "data": [C.data_rank(), C.data_world_size(),
+                     ranks(C.data_group())],
+            "model": [C.model_rank(), C.model_world_size(),
+                      ranks(C.model_group())]}
+
+
 def main():
     mode, spec_path = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
@@ -263,7 +400,8 @@ def main():
     init_distributed("cpu", "gloo", timeout_s=TIMEOUT_S)
     rank = C.get_rank()
     out = {"steps": mode_steps, "main": mode_main, "extract": mode_extract,
-           "collectives": mode_collectives}[mode](spec, rank)
+           "collectives": mode_collectives, "mesh": mode_mesh}[mode](
+        spec, rank)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "vidsitu_tpu"))
     assert not leaked, f"rank {rank} imported {leaked[:5]}"

@@ -11,8 +11,11 @@ evaluators.py:357). Rank 0 merges every rank's entries (``_merge_ranks``),
 drops the sampler's padding duplicates by ``ann_idx``, orders the entries by
 ``ann_idx``, writes ``{dl_name}_0.pkl`` and scores it (``EvlFn_Vb`` /
 ``EvalFnCap`` / ``EvlFn_EvRel``); the other ranks return zeros, as the JAX
-package's do. One process writes and scores its own entries alike. Each
-evaluator is ``evaluator(dl, dl_name, pred_path) -> (loss_dict,
+package's do. One process writes and scores its own entries alike. Under
+a ``model`` mesh axis ``rank`` / ``world_size`` are the data coordinate and
+extent: the ranks of a model group decode the same rows, and only model
+coordinate 0 writes (``model_rank``); the others join the collectives and
+return zeros. Each evaluator is ``evaluator(dl, dl_name, pred_path) -> (loss_dict,
 metric_dict)`` with ``met_keys``, as the Learner calls it.
 """
 
@@ -29,6 +32,7 @@ import torch
 
 from ..parallel.collectives import (
     broadcast_object,
+    data_group,
     reduce_dict_corr,
     synchronize,
 )
@@ -67,9 +71,11 @@ class _RankedEvaluator:
     (port of the JAX package's ``_run_token`` / ``_merge_ranks``,
     evaluators.py:106-187)."""
 
-    def __init__(self, rank: int = 0, world_size: int = 1):
+    def __init__(self, rank: int = 0, world_size: int = 1,
+                 model_rank: int = 0):
         self.rank = rank
         self.world_size = world_size
+        self.model_rank = model_rank
         self._merge_seq = 0
         self._merge_token: Optional[str] = None
 
@@ -89,13 +95,21 @@ class _RankedEvaluator:
         call has a sequence number, equal on every rank, and each rank's
         ``.done`` marker carries it with the run token: rank 0 reads a
         rank's pickle only behind this call's marker, else raises rather
-        than score another call's predictions."""
+        than score another call's predictions. A rank of model coordinate
+        > 0 holds its model group's entries again: it writes nothing, joins
+        the run token's broadcast and the barriers, and returns None."""
         pred_path = Path(pred_path)
         pred_path.mkdir(parents=True, exist_ok=True)
         if self.world_size == 1:
+            if self.model_rank:
+                return None
             return _write_unique(own, pred_path, dl_name)
         self._merge_seq += 1
         seq, tok = self._merge_seq, self._run_token()
+        if self.model_rank:
+            synchronize()
+            synchronize()
+            return None
         if seq == 1:
             for stale in pred_path.glob(f".{dl_name}_{self.rank}.*.done"):
                 stale.unlink()
@@ -155,8 +169,8 @@ class EvalB_Gen(_RankedEvaluator):
 
     def __init__(self, cfg, comm, generate_fn, device,
                  split_type: str = "valid", rank: int = 0,
-                 world_size: int = 1):
-        super().__init__(rank, world_size)
+                 world_size: int = 1, model_rank: int = 0):
+        super().__init__(rank, world_size, model_rank)
         self.cfg = cfg
         self.comm = comm
         self.generate_fn = generate_fn
@@ -226,8 +240,8 @@ class EvalB(_RankedEvaluator):
     met_keys = ["Per_Ev_Top_1", "Per_Ev_Top_5", "recall_macro_1_th_9"]
 
     def __init__(self, cfg, comm, model, device, split_type: str = "valid",
-                 rank: int = 0, world_size: int = 1):
-        super().__init__(rank, world_size)
+                 rank: int = 0, world_size: int = 1, model_rank: int = 0):
+        super().__init__(rank, world_size, model_rank)
         self.cfg = cfg
         self.comm = comm
         self.model = model
@@ -290,16 +304,16 @@ class EvalB_Acc(_RankedEvaluator):
     ``EvlFn_EvRel.simple_acc_evrel``. The validation loss is the masked
     cross-entropy recomputed on the host in float64 from the same logits,
     over the real rows of a padded final batch only, weighted by each
-    batch's real rows (evaluators.py:349-360); over several ranks, the
-    ranks' losses weighted by their real rows (``reduce_dict_corr``, in
+    batch's real rows (evaluators.py:349-360); over several ranks, the data
+    group's losses weighted by their real rows (``reduce_dict_corr``, in
     float64), the sampler's padding repeats not counted. ``batch_seconds``
     holds each batch's wall time, host batch to logits on the host."""
 
     met_keys = ["Macro_Top_1", "Top_1"]
 
     def __init__(self, cfg, comm, model, device, split_type: str = "valid",
-                 rank: int = 0, world_size: int = 1):
-        super().__init__(rank, world_size)
+                 rank: int = 0, world_size: int = 1, model_rank: int = 0):
+        super().__init__(rank, world_size, model_rank)
         self.cfg = cfg
         self.comm = comm
         self.model = model
@@ -367,7 +381,8 @@ class EvalB_Acc(_RankedEvaluator):
                     out, padded["evrel_labs"], n_real))
                 nums.append(n_real)
         local = float(np.average(losses, weights=nums)) if losses else 0.0
-        val_loss = reduce_dict_corr({"loss": local}, float(sum(nums)))["loss"]
+        val_loss = reduce_dict_corr({"loss": local}, float(sum(nums)),
+                                    group=data_group())["loss"]
         fname = self._merge_ranks(pred_path, dl_name, results)
         if fname is None:
             return {"loss": val_loss}, {k: 0.0 for k in self.met_keys}

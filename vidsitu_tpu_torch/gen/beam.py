@@ -18,7 +18,9 @@ Points where torch differs from XLA and the port does what XLA does:
 
 The KV-cache reorder of a beam step (``_gather_beams``) moves every float
 leaf of the cache in one launch of the row-gather kernel on a GPU
-(ops/beam_gather.py), and takes its plain version on the CPU.
+(ops/beam_gather.py), and takes its plain version on the CPU. Under tensor
+parallelism the cache holds this rank's heads, and each rank reorders its
+own (gen/generate.py).
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ import torch
 
 from ..models.common import make_padding_mask
 from ..models.srl_models import SRLModel
+from ..parallel.collectives import model_group, model_world_size
 from .beam import (
     BeamOutput,
     GenConfig,
@@ -31,6 +32,15 @@ class SRLGenerator:
     the row-gather kernel on a GPU). With ``seg_min`` > 0 the cache starts
     at ``seg_min`` + 1 positions and doubles between segments, token-exact
     against one segment.
+
+    Under tensor parallelism (``parallel/tensor.py``) each rank of a model
+    group decodes the same rows with its own heads: its cache holds H / n
+    heads, its cross K/V come from its own projections and its reorders
+    move its own cache (the row-gather kernel, one launch a step on every
+    rank). The logits leave the all-reduce equal on every rank, so every
+    host decision (finished hypotheses, the stop) is the same and the ranks
+    stay in lockstep; the tokens and steps are compared at the end of each
+    search, and a parting raises.
 
     ``steps`` lists the decode steps each call took."""
 
@@ -116,6 +126,8 @@ class SRLGenerator:
             seg_bounds=self.seg_bounds or None,
             grow_cache_fn=self._grow_cache if self.seg_bounds else None,
         )
+        if model_world_size() > 1:
+            same_on_model_group(out)
         self.steps.append(out.steps)
         return out
 
@@ -124,6 +136,20 @@ class SRLGenerator:
         max_len + 1)."""
         seqs = self.search(inp).seqs
         return seqs[:, 0].reshape(-1, 5, 1, seqs.shape[-1])
+
+
+def same_on_model_group(out: BeamOutput) -> None:
+    """Raise unless every rank of the model group holds the same tokens and
+    steps (one all-reduce of their maximum and of their negated minimum)."""
+    mine = torch.cat([out.seqs.reshape(-1),
+                      out.seqs.new_tensor([out.steps])])
+    both = torch.cat([mine, -mine])
+    torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX,
+                                 group=model_group())
+    hi, neg_lo = both.split(mine.numel())
+    if not (torch.equal(hi, mine) and torch.equal(-neg_lo, mine)):
+        raise RuntimeError(
+            "the ranks of a model group decoded different tokens or steps")
 
 
 def make_srl_generator(model: SRLModel, gen_cfg: GenConfig, vocab_size: int,

@@ -82,7 +82,8 @@ def deterministic():
         _DROPOUT.off = prev
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            split: Optional[tuple] = None) -> torch.Tensor:
     """The JAX package's ``_dropout`` (models/transformer.py:254): identity
     when ``rate`` is 0, the module is in ``eval()`` or inside
     :func:`deterministic`, else ``x * keep / (1 - rate)`` with ``keep``
@@ -96,7 +97,14 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     (B, T, D) activations, (B, H, T, S) attention probabilities, and (B*5,
     ...) or (B*4*N, ...) where events or pairs are folded in behind the
     example. A leading dimension that is not a multiple of the examples
-    raises."""
+    raises.
+
+    ``split`` = (dim, coord, n): ``x`` is part ``coord`` of ``n`` equal parts
+    along ``dim`` of the whole activation (tensor parallelism: this rank's
+    heads of the attention probabilities, its hidden columns of the FFN).
+    The whole activation's mask is drawn and this part of it kept, so that a
+    part's mask is the whole one's and the generator moves alike on every
+    rank of the model group."""
     if rate <= 0.0 or not training or getattr(_DROPOUT, "off", False):
         return x
     gen = getattr(_DROPOUT, "gen", None)
@@ -104,9 +112,14 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         raise RuntimeError(
             "dropout in training mode draws from an explicit generator: run "
             "the forward inside models.common.dropout_generator(gen)")
+    shape = list(x.shape)
+    if split is not None:
+        dim, coord, parts = split
+        dim %= x.dim()
+        shape[dim] *= parts
     shard = getattr(_DROPOUT, "shard", None)
     if shard is None:
-        u = torch.rand(x.shape, generator=gen, device=x.device)
+        u = torch.rand(shape, generator=gen, device=x.device)
     else:
         rank, world, n = shard
         if not n or x.dim() == 0 or x.shape[0] % n:
@@ -116,15 +129,19 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
                 f"{n} examples")
         # the global batch's mask, (examples * world, rows of an example);
         # this rank's examples are its rows rank::world
-        u = torch.rand((n * world, x.numel() // n), generator=gen,
-                       device=x.device)[rank::world].reshape(x.shape)
+        u = torch.rand((n * world, math.prod(shape) // n), generator=gen,
+                       device=x.device)[rank::world].reshape(shape)
+    if split is not None:
+        u = u.narrow(dim, coord * x.shape[dim], x.shape[dim])
     return x * (u < 1.0 - rate) / (1.0 - rate)
 
 
-def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+           with_bias: bool = True) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: input, kernel and bias cast to the compute
-    dtype, then the product."""
-    bias = None if lin.bias is None else lin.bias.to(dtype)
+    dtype, then the product. ``with_bias=False`` leaves the bias to the
+    caller (a row-parallel product adds it after its all-reduce)."""
+    bias = None if lin.bias is None or not with_bias else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..parallel.collectives import get_world_size
+from ..parallel.collectives import data_group, data_world_size
 from . import common
 from .common import MLP
 from .transformer import TransformerDecoder, TransformerEncoder, TxConfig
@@ -57,10 +57,11 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     it does in the JAX package.
 
     Under a process group of several ranks, with autograd on, the
-    denominator is the count of non-pad labels over every rank (all-reduced,
-    no gradient): each rank returns its share of the global batch's mean,
-    the ranks' shares sum to it, and so do their gradients (``Learner``
-    sums them)."""
+    denominator is the count of non-pad labels over the data group (every
+    rank, or under tensor parallelism the ranks that split the batch;
+    all-reduced, no gradient): each rank returns its share of the global
+    batch's mean, the ranks' shares sum to it, and so do their gradients
+    (``Learner`` sums them over the data group)."""
     labels = labels.reshape(-1)
     mask = labels != pad_id
     stat = torch.promote_types(logits.dtype, torch.float32)
@@ -68,9 +69,9 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          torch.where(mask, labels, 0), reduction="none")
     mask = mask.to(stat)
     count = mask.sum()
-    if get_world_size() > 1 and torch.is_grad_enabled():
+    if data_world_size() > 1 and torch.is_grad_enabled():
         count = count.detach().clone()
-        torch.distributed.all_reduce(count)
+        torch.distributed.all_reduce(count, group=data_group())
     return (ce * mask).sum() / count.clamp(min=1.0)
 
 

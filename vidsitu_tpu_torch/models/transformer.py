@@ -25,6 +25,13 @@ and values as contiguous (L, Dh) matrices without a transposed copy of the
 cache. A beam reorder moves whole rows, so the layout inside a row does not
 matter to it. ``decode_step`` writes the step's K/V into the cache in place
 (the JAX package's ``dynamic_update_slice``, clamped the same way).
+
+Under tensor parallelism (``parallel/tensor.py:shard_tp``) an attention
+module holds ``n_heads`` / n heads and an FFN ffn / n hidden columns: each
+enters through ``copy_to_model`` and leaves through ``reduce_from_model``,
+the row-parallel bias added after the reduce; ``tp`` = (this rank's model
+coordinate, n), None when whole. The decode cache then holds this rank's
+heads.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.tensor import copy_to_model, reduce_from_model
 from . import common
 from .common import (
     NEG_INF,
@@ -130,6 +138,7 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  dropout: float = 0.0):
         super().__init__()
+        self.tp: Optional[Tuple[int, int]] = None
         self.n_heads = n_heads
         self.dropout = dropout
         self.head_dim = d_model // n_heads
@@ -146,27 +155,38 @@ class MultiHeadAttention(nn.Module):
         y = linear(lin, x, self.dtype).view(b, t, self.n_heads, self.head_dim)
         return y.transpose(1, 2)
 
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp is None else copy_to_model(x)
+
     def project_kv(self, kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """K and V, (B, H, S, Dh) contiguous (cross-attention caches)."""
+        kv = self._enter(kv)
         return (self._heads(self.k_proj, kv).contiguous(),
                 self._heads(self.v_proj, kv).contiguous())
 
     def _query(self, q_in: torch.Tensor) -> torch.Tensor:
-        q = self._heads(self.q_proj, q_in)
+        q = self._heads(self.q_proj, self._enter(q_in))
         return q / torch.tensor(math.sqrt(self.head_dim)).to(q.dtype)
 
     def _out(self, ctx: torch.Tensor) -> torch.Tensor:
         """(B, H, T, Dh) -> (B, T, D)."""
         b, h, t, dh = ctx.shape
-        return linear(self.out_proj,
-                      ctx.transpose(1, 2).reshape(b, t, h * dh), self.dtype)
+        flat = ctx.transpose(1, 2).reshape(b, t, h * dh)
+        if self.tp is None:
+            return linear(self.out_proj, flat, self.dtype)
+        out = reduce_from_model(linear(self.out_proj, flat, self.dtype,
+                                       with_bias=False))
+        return out + self.out_proj.bias.to(self.dtype)
 
     def _softmax(self, logits: torch.Tensor,
                  mask: Optional[torch.Tensor]) -> torch.Tensor:
         if mask is not None:
             logits = logits + mask.to(logits.dtype)
         probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
-        return common.dropout(probs, self.dropout, self.training)
+        if self.tp is None:
+            return common.dropout(probs, self.dropout, self.training)
+        return common.dropout(probs, self.dropout, self.training,
+                              (1, *self.tp))
 
     def attend(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -240,8 +260,11 @@ class FFN(nn.Module):
         self.dtype = dtype
         self.activation = activation
         self.dropout = dropout
+        self.tp: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_model(x)
         h = linear(self.fc1, x, self.dtype)
         if self.activation == "relu":
             h = F.relu(h)
@@ -249,8 +272,13 @@ class FFN(nn.Module):
             h = F.gelu(h, approximate="tanh")
         else:  # BERT/RoBERTa erf gelu
             h = F.gelu(h)
-        h = common.dropout(h, self.dropout, self.training)
-        return linear(self.fc2, h, self.dtype)
+        if self.tp is None:
+            h = common.dropout(h, self.dropout, self.training)
+            return linear(self.fc2, h, self.dtype)
+        h = common.dropout(h, self.dropout, self.training, (-1, *self.tp))
+        out = reduce_from_model(linear(self.fc2, h, self.dtype,
+                                       with_bias=False))
+        return out + self.fc2.bias.to(self.dtype)
 
 
 class EncoderLayer(nn.Module):
@@ -433,15 +461,17 @@ class TransformerDecoder(_Embeddings):
 
     def build_cache(self, batch: int, max_len: int,
                     enc_out: Optional[torch.Tensor] = None) -> Cache:
-        """Self K/V zeros of (batch, H, max_len, Dh) in the compute dtype,
-        plus the cross K/V of ``enc_out``, computed once."""
+        """Self K/V zeros of (batch, H, max_len, Dh) in the compute dtype
+        (H: the layer's heads, this rank's under tensor parallelism), plus
+        the cross K/V of ``enc_out``, computed once."""
         c = self.cfg
         dh = c.d_model // c.n_heads
         dev = self.embed_tokens.weight.device
         cache: Cache = {"layers": []}
         for layer in self.layers:
+            heads = layer.self_attn.n_heads
             entry = {
-                name: torch.zeros(batch, c.n_heads, max_len, dh,
+                name: torch.zeros(batch, heads, max_len, dh,
                                   dtype=c.dtype, device=dev)
                 for name in ("self_k", "self_v")
             }

@@ -49,7 +49,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import nonlocal_attention
-from ..parallel.collectives import get_world_size
+from ..parallel.collectives import data_group, data_world_size
 
 # Per-stage temporal-kernel PATTERNS (PySlowFast _TEMPORAL_KERNEL_BASIS):
 # stem + res2..res5; a stage's pattern is tiled across its blocks.
@@ -207,7 +207,8 @@ class BatchNorm3d(nn.BatchNorm3d):
     recomputed. ``zero_init``: flax's ``scale_init`` is zeros here.
 
     Under a process group of several ranks (``torch.distributed``), the
-    batch statistics are those of every rank's batch together
+    batch statistics are those of the data group's batches together (every
+    rank's; under a ``model`` axis, the ranks that split the batch)
     (:meth:`_global_stats`); one rank computes what one process does."""
 
     def __init__(self, features: int, zero_init: bool = False,
@@ -221,7 +222,7 @@ class BatchNorm3d(nn.BatchNorm3d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         update = not getattr(_REMAT, "active", False)
-        if get_world_size() > 1:
+        if data_world_size() > 1:
             return self._global_stats(x, update)
         if not self.f32_stats:
             return self._low_precision_stats(x, update)
@@ -258,7 +259,8 @@ class BatchNorm3d(nn.BatchNorm3d):
         else:
             s1 = x.mean(dim=dims).to(acc) * n
             s2 = (x * x).mean(dim=dims).to(acc) * n
-        tot = all_reduce(torch.cat([s1, s2, s1.new_full((1,), float(n))]))
+        tot = all_reduce(torch.cat([s1, s2, s1.new_full((1,), float(n))]),
+                         group=data_group())
         c = x.shape[1]
         mean, mean2 = tot[:c] / tot[-1], tot[c:2 * c] / tot[-1]
         if not self.f32_stats:

@@ -6,11 +6,20 @@ Without a process group every helper returns what one process would: rank
 float64 (the JAX package's ``reduce_dict`` gathers float32 arrays: without
 x64 ``process_allgather`` drops the float64 it was given). The tensors of a
 reduction live on the CPU for gloo and on this rank's card for NCCL.
+
+Under a mesh with a ``model`` axis of extent > 1 (tensor parallelism,
+``parallel/tensor.py``) the ranks of one model group hold the same
+examples: what sums over examples (the loss's count, BatchNorm's sums, the
+gradients, a validation loss) sums over the *data group*, the ranks that
+share this rank's model coordinate, and what the split layers reduce sums
+over the *model group*. ``parallel.mesh.make_mesh`` records both
+(:func:`set_axis_groups`); without a model axis the data group is every
+rank and there is no model group.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -33,6 +42,48 @@ def is_main_process() -> bool:
     return get_rank() == 0
 
 
+# the groups of the mesh's axes, set by parallel.mesh.make_mesh: None for
+# the data group is the default group (every rank); None for the model
+# group is no tensor parallelism
+_AXIS_GROUPS: Dict[str, Any] = {"data": None, "model": None}
+
+
+def set_axis_groups(data=None, model=None) -> None:
+    _AXIS_GROUPS.update(data=data, model=model)
+
+
+def data_group():
+    """The ranks that split the batch with this one (data x fsdp); None
+    is the default group."""
+    return _AXIS_GROUPS["data"]
+
+
+def model_group():
+    """The ranks that hold this rank's examples and split its tensor-
+    parallel layers; None without tensor parallelism."""
+    return _AXIS_GROUPS["model"]
+
+
+def data_world_size() -> int:
+    return dist.get_world_size(data_group()) if is_dist() else 1
+
+
+def data_rank() -> int:
+    """This rank's coordinate on the data x fsdp axes: its loader shard and
+    its rows of a global batch."""
+    return dist.get_rank(data_group()) if is_dist() else 0
+
+
+def model_world_size() -> int:
+    group = model_group()
+    return dist.get_world_size(group) if is_dist() and group else 1
+
+
+def model_rank() -> int:
+    group = model_group()
+    return dist.get_rank(group) if is_dist() and group else 0
+
+
 def synchronize() -> None:
     """Barrier across every rank (reference synchronize, trn_utils.py:64)."""
     if get_world_size() > 1:
@@ -47,32 +98,39 @@ def collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _sum_float64(values: List[float]) -> List[float]:
+def _sum_float64(values: List[float], group=None) -> List[float]:
     t = torch.tensor(values, dtype=torch.float64, device=collective_device())
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t.tolist()
 
 
-def reduce_dict(input_dict: Dict[str, float], average: bool = True) -> Dict:
-    """Sum (or mean) of a dict of host scalars over the ranks, in float64
-    (reference reduce_dict, trn_utils.py:79-103)."""
-    if get_world_size() == 1:
+def _size(group) -> int:
+    return dist.get_world_size(group) if is_dist() else 1
+
+
+def reduce_dict(input_dict: Dict[str, float], average: bool = True,
+                group: Optional[Any] = None) -> Dict:
+    """Sum (or mean) of a dict of host scalars over the ranks of ``group``
+    (None: every rank), in float64 (reference reduce_dict,
+    trn_utils.py:79-103)."""
+    world = _size(group)
+    if world == 1:
         return dict(input_dict)
     keys = sorted(input_dict)
-    summed = _sum_float64([float(input_dict[k]) for k in keys])
-    world = get_world_size()
+    summed = _sum_float64([float(input_dict[k]) for k in keys], group)
     return {k: (v / world if average else v) for k, v in zip(keys, summed)}
 
 
-def reduce_dict_corr(input_dict: Dict[str, float], nums: float) -> Dict:
-    """Count-weighted mean over the ranks, in float64: each rank's values
-    weighted by its ``nums`` (reference reduce_dict_corr,
-    trn_utils.py:106-121)."""
-    if get_world_size() == 1:
+def reduce_dict_corr(input_dict: Dict[str, float], nums: float,
+                     group: Optional[Any] = None) -> Dict:
+    """Count-weighted mean over the ranks of ``group`` (None: every rank),
+    in float64: each rank's values weighted by its ``nums`` (reference
+    reduce_dict_corr, trn_utils.py:106-121)."""
+    if _size(group) == 1:
         return dict(input_dict)
     keys = sorted(input_dict)
     summed = _sum_float64([float(input_dict[k]) * float(nums) for k in keys]
-                          + [float(nums)])
+                          + [float(nums)], group)
     total = summed[-1]
     return {k: v / max(total, 1e-8) for k, v in zip(keys, summed[:-1])}
 

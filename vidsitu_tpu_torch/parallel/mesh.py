@@ -17,8 +17,18 @@ split over data x fsdp, i.e. over every rank. An fsdp run::
         vb_run --task_type=vb --device=cuda \\
         --tpu.mesh_shape='[2, -1]' --tpu.mesh_axis_names="['data', 'fsdp']"
 
-The JAX package's ``model`` axis (Megatron tensor parallelism, ``tp_spec``)
-is not ported (ROADMAP.md, Queue 1 item 3) and raises.
+The ``model`` axis is the JAX package's Megatron tensor parallelism
+(``tp_spec``; ``parallel/tensor.py``): the ranks along it hold the same
+examples and split the transformer layers' heads and FFN columns, and the
+batch is split over data x fsdp only. A run on 2 data x 2 model ranks::
+
+    torchrun --standalone --nproc_per_node=4 -m vidsitu_tpu_torch.main \\
+        srl_run --task_type=vb_arg --device=cuda \\
+        --tpu.mesh_shape='[-1, 2]' --tpu.mesh_axis_names="['data', 'model']"
+
+``make_mesh`` records the data and model groups of this rank
+(``collectives.set_axis_groups``), which the loss, BatchNorm, the Learner,
+the evaluators and the split layers reduce over.
 """
 
 from __future__ import annotations
@@ -31,12 +41,11 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from .collectives import is_dist
+from .collectives import is_dist, set_axis_groups
 
 # the process group's timeout: a collective that waits longer raises
 TIMEOUT_S = 1800.0
 KNOWN_AXES = ("data", "fsdp", "model")
-NOT_PORTED_AXES = ("model",)
 
 
 def rank_device(device, local_rank: int) -> torch.device:
@@ -89,22 +98,17 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
         backend, init_method="env://",
         timeout=datetime.timedelta(seconds=timeout_s),
         device_id=dev if backend == "nccl" else None)
+    set_axis_groups()  # a new group: no mesh's groups yet
     return dev
 
 
 def check_axes(cfg) -> None:
-    """Raise for the mesh axes the port does not have."""
+    """Raise for an axis name the port does not know, or one named twice."""
     names = tuple(cfg.tpu.mesh_axis_names)
     unknown = [a for a in names if a not in KNOWN_AXES]
     if unknown or len(set(names)) != len(names):
         raise ValueError(f"cfg.tpu.mesh_axis_names={list(names)}: each of "
                          f"{list(KNOWN_AXES)} at most once")
-    bad = [a for a in names if a in NOT_PORTED_AXES]
-    if bad:
-        raise NotImplementedError(
-            f"mesh axes {bad} (cfg.tpu.mesh_axis_names={list(names)}): "
-            "tensor parallelism is not ported (ROADMAP.md, Queue 1 item 3); "
-            "the port has the 'data' and 'fsdp' axes")
 
 
 def mesh_shape(cfg, world: int) -> tuple:
@@ -128,7 +132,8 @@ def mesh_shape(cfg, world: int) -> tuple:
 
 def make_mesh(cfg, device_type: str = "cpu"):
     """The ``DeviceMesh`` of ``cfg.tpu.mesh_shape`` / ``mesh_axis_names``
-    over every rank of the process group (which must exist)."""
+    over every rank of the process group (which must exist); records this
+    rank's data and model groups (a collective: every rank calls it)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     check_axes(cfg)
@@ -136,13 +141,42 @@ def make_mesh(cfg, device_type: str = "cpu"):
         raise RuntimeError("make_mesh needs a process group "
                            "(parallel.mesh.init_distributed)")
     shape = mesh_shape(cfg, dist.get_world_size())
-    return init_device_mesh(device_type, shape,
+    mesh = init_device_mesh(device_type, shape,
                             mesh_dim_names=tuple(cfg.tpu.mesh_axis_names))
+    set_axis_groups(**axis_groups(mesh))
+    return mesh
+
+
+def model_extent(mesh) -> int:
+    """How many ways the ``model`` axis splits the transformer layers (1
+    without one)."""
+    names = mesh.mesh_dim_names
+    return int(mesh["model"].size()) if "model" in names else 1
+
+
+def model_coord(mesh) -> int:
+    return mesh.get_local_rank("model") if model_extent(mesh) > 1 else 0
+
+
+def axis_groups(mesh) -> dict:
+    """This rank's data group (the ranks of its model coordinate, in
+    data x fsdp order: group rank = data coordinate) and model group; with
+    no ``model`` axis of extent > 1, ``data=None`` (every rank) and no
+    model group. The data groups are made here (every rank makes all of
+    them)."""
+    if model_extent(mesh) == 1:
+        return {"data": None, "model": None}
+    dim = mesh.mesh_dim_names.index("model")
+    ranks = mesh.mesh.movedim(dim, 0)
+    data, _ = dist.new_subgroups_by_enumeration(
+        [ranks[m].flatten().tolist() for m in range(ranks.shape[0])])
+    return {"data": data, "model": mesh["model"].get_group()}
 
 
 def data_extent(mesh) -> int:
     """How many ways the batch axis is split: the product of the ``data``
-    and ``fsdp`` extents (fsdp is a subdivision of data parallelism)."""
+    and ``fsdp`` extents (fsdp is a subdivision of data parallelism; the
+    ``model`` axis splits weights, not examples)."""
     return math.prod(int(mesh[a].size()) for a in mesh.mesh_dim_names
                      if a in ("data", "fsdp"))
 
@@ -189,6 +223,8 @@ def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
     from torch.distributed.fsdp import FSDPModule, fully_shard
 
     names = mesh.mesh_dim_names
+    # over data x fsdp: under a model axis too, each model coordinate's
+    # ranks shard its own slices of the split layers
     sub = mesh[("data", "fsdp")] if "data" in names else mesh["fsdp"]
     for block in fsdp_blocks(model):
         fully_shard(block, mesh=sub)

@@ -3,9 +3,12 @@ main_dist.py:94-129): data, model (initialised, pretrained weights,
 weights given by the caller), the task's evaluator and the Learner, for
 the three tasks: ``vb``, ``vb_arg`` and ``evrel``, training and evaluation,
 on one device per process. Under a process group each rank loads its shard
-of the global batch (``get_data(cfg, num_shards=world, shard_id=rank)``);
-with an ``fsdp`` mesh axis a training model is sharded
-(``parallel.mesh.shard_model``) and evaluates through a whole copy.
+of the global batch (``get_data(cfg, num_shards=data extent,
+shard_id=data coordinate)``: the ranks of a ``model`` axis load the same
+rows); with a ``model`` mesh axis the transformer layers are split
+(``parallel.tensor.shard_tp``) and decode split; with an ``fsdp`` axis a
+training model is then sharded (``parallel.mesh.shard_model``) and
+evaluates through a copy that is whole on the fsdp axis.
 """
 
 from __future__ import annotations
@@ -54,7 +57,12 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         build_srl_generate_fn,
         init_model_variables,
     )
-    from ..parallel.collectives import get_rank, get_world_size, is_dist
+    from ..parallel.collectives import (
+        data_rank,
+        data_world_size,
+        is_dist,
+        model_rank,
+    )
     from ..parallel.mesh import (
         data_extent,
         make_mesh,
@@ -62,13 +70,13 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         shard_model,
         shards_params,
     )
+    from ..parallel.tensor import shard_tp
     from .pretrained import load_pretrained_variables
 
     task = cfg.task_type
     if task not in ("vb", "vb_arg", "evrel"):
         raise NotImplementedError(f"task_type {task!r}")
     dev = resolve_device(device)
-    rank, world = get_rank(), get_world_size()
     mesh = make_mesh(cfg, dev.type) if is_dist() else None
     if mesh is None:
         mesh_shape(cfg, 1)  # the axes and the shape must hold on one process
@@ -79,6 +87,7 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
             raise ValueError(
                 f"train.{key}={cfg.train[key]} (the global batch) is not "
                 f"divisible by the {extent} ranks of the data x fsdp axes")
+    rank, world = data_rank(), data_world_size()
     data = get_data(cfg, num_shards=world, shard_id=rank)
     comm = data.valid_dl.dataset.comm
     model = build_model(cfg, comm)
@@ -90,30 +99,32 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         if weights:
             load_weights(model, cfg, weights, False)
     model.to(dev)
+    if mesh is not None:
+        shard_tp(model, mesh)
     sharded = shards_params(mesh) and is_training(cfg)
     if task == "vb" and dev.type == "cuda" and not sharded:
         # FSDP2 refuses parameters that are not contiguous
         model.to(memory_format=torch.channels_last_3d)
-    # a sharded model evaluates through a whole copy on every rank: the
-    # ranks' decodes stop at different steps, and a per-forward all-gather
-    # would then deadlock (the Learner copies the weights in before each
-    # validation)
+    # an fsdp-sharded model evaluates through a copy that is whole on the
+    # fsdp axis: the ranks' decodes stop at different steps, and a
+    # per-forward all-gather would then deadlock (the Learner copies the
+    # weights in before each validation). A model group decodes the same
+    # rows in lockstep, so the copy keeps the tensor-parallel split.
     eval_model = copy.deepcopy(model) if sharded else model
     if sharded:
         shard_model(model, mesh)
+    ranks = dict(rank=rank, world_size=world, model_rank=model_rank())
     if task == "vb":
         eval_fn = EvalB(cfg, comm, eval_model, dev, split_type=(
-            "valid" if not cfg.only_test else "test_verb"), rank=rank,
-            world_size=world)
+            "valid" if not cfg.only_test else "test_verb"), **ranks)
     elif task == "evrel":
         eval_fn = EvalB_Acc(cfg, comm, eval_model, dev, split_type=(
-            "valid" if not cfg.only_test else "test_evrel"), rank=rank,
-            world_size=world)
+            "valid" if not cfg.only_test else "test_evrel"), **ranks)
     else:
         eval_fn = EvalB_Gen(
             cfg, comm, build_srl_generate_fn(cfg, comm, eval_model), dev,
             split_type="valid" if not cfg.only_test else "test_srl",
-            rank=rank, world_size=world)
+            **ranks)
     model.train(is_training(cfg))
     return Learner(uid=uid, cfg=cfg, model=model, data=data, eval_fn=eval_fn,
                    device=dev, eval_model=eval_model)

@@ -134,7 +134,9 @@ class DcpBackend:
     that a config written for the JAX package runs unchanged.
 
     Every rank calls ``save`` (``collective`` True) with its own shards
-    (fsdp's DTensors; replicated tensors are written once), and
+    (fsdp's DTensors; replicated tensors are written once: under tensor
+    parallelism the Learner gathers the split tensors whole first, so every
+    name has one shape on every rank), and
     ``dcp.async_save`` writes them in the background; there is no gather to
     rank 0. Durability as orbax's: saves alternate between two generation
     directories, ``tree.g0`` and ``tree.g1``, inside the checkpoint's

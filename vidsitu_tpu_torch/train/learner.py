@@ -37,7 +37,11 @@ FSDP2's reduce-scatter at every backward with its divide factor at 1. Every
 rank holds the same dropout generator, seeded from ``train.seed``, and
 keeps its examples' rows of the global batch's masks
 (``models.common.dropout_generator``), so a step does not depend on the
-number of ranks. Rank 0 writes the logs and the tracker; checkpoints hold
+number of ranks. Under a ``model`` mesh axis (tensor parallelism,
+``parallel/tensor.py``) the ranks of a model group hold the same examples:
+the batch, the dropout rows, the loss and the gradient sum follow the data
+group (``collectives.data_group``), and the split parameters' gradients stay
+each rank's slice. Rank 0 writes the logs and the tracker; checkpoints hold
 one generator state and resume on any number of ranks and any mesh that
 divides the global batches (``load_model_dict``); a sharded model validates
 through a whole copy (``eval_model``), refreshed before each validation;
@@ -62,6 +66,9 @@ import torch
 from ..parallel.collectives import (
     broadcast_object,
     collective_device,
+    data_group,
+    data_rank,
+    data_world_size,
     get_rank,
     get_world_size,
     is_dist,
@@ -118,6 +125,7 @@ class Learner:
                  device, loss_keys=("loss",),
                  eval_model: Optional[torch.nn.Module] = None):
         from ..parallel.mesh import is_sharded
+        from ..parallel.tensor import split_of
         from .checkpoint import get_backend
         from .pretrained import make_freeze_mask
 
@@ -128,6 +136,8 @@ class Learner:
         # what eval_fn runs: the model, or a whole copy of a sharded one
         self.eval_model = model if eval_model is None else eval_model
         self.sharded = is_sharded(model)
+        # the tensor-parallel split (parallel/tensor.py), or None
+        self.split = split_of(model)
         self.data = data
         self.eval_fn = eval_fn
         self.loss_keys = list(loss_keys)
@@ -146,6 +156,8 @@ class Learner:
         self._stale_preempt = None  # consumed preempt ckpt, deleted on save
         self.ckpt_backend = get_backend(cfg.train.ckpt_backend)
         self.rank, self.world_size = get_rank(), get_world_size()
+        # this rank's place among the ranks that split the batch
+        self.data_rank, self.data_world = data_rank(), data_world_size()
         self.is_main = self.rank == 0
         # the dropout masks' random state, on the training device, the same
         # on every rank; the only random state of a step (the JAX
@@ -245,8 +257,8 @@ class Learner:
         self.model.train()
         # every batch holds vseg_idx: one row per example of this rank
         examples = len(batch["vseg_idx"]) if "vseg_idx" in batch else None
-        with dropout_generator(self.dropout_gen, self.rank, self.world_size,
-                               examples):
+        with dropout_generator(self.dropout_gen, self.data_rank,
+                               self.data_world, examples):
             loss = self.model(batch)["loss"]
         (loss / self._grad_accum).backward()
         self._accum_count += 1
@@ -262,7 +274,7 @@ class Learner:
         loss = loss.detach()
         if is_dist():
             loss = loss.clone()
-            torch.distributed.all_reduce(loss)
+            torch.distributed.all_reduce(loss, group=data_group())
         return loss
 
     def _sum_grads(self):
@@ -271,7 +283,9 @@ class Learner:
             p.grad = g
 
     def _summed_grads(self, inplace: bool) -> List[Optional[torch.Tensor]]:
-        """The ranks' gradients summed in one flat all-reduce, with a flag
+        """The data group's gradients summed in one flat all-reduce (a split
+        parameter's are this rank's slice, summed with the same slice of
+        the other data coordinates), with a flag
         per parameter: one that has no gradient on any rank keeps none
         (Adam then leaves it alone, as on one process), one that has a
         gradient on some rank takes zeros where it has none. ``inplace``
@@ -283,7 +297,7 @@ class Learner:
         flags = torch.tensor([p.grad is not None for p in params],
                              dtype=grads[0].dtype, device=grads[0].device)
         flat = torch.cat([g.reshape(-1) for g in grads] + [flags])
-        torch.distributed.all_reduce(flat)
+        torch.distributed.all_reduce(flat, group=data_group())
         sizes = [g.numel() for g in grads] + [len(params)]
         *parts, flags = flat.split(sizes)
         return [(g.copy_(part.view(g.shape)) if inplace
@@ -391,9 +405,10 @@ class Learner:
             db = {self.cfg.val_dl_name: self.data.valid_dl}
         out_loss, out_acc = {}, {}
         if self.eval_model is not self.model:
-            # the sharded weights, gathered whole on every rank (collective)
-            self.eval_model.load_state_dict(self._model_state(full=True,
-                                                              cpu=False))
+            # the fsdp-sharded weights, gathered on every rank (collective;
+            # under tensor parallelism the copy keeps this rank's slices)
+            self.eval_model.load_state_dict(self._model_state(
+                full=True, cpu=False, model_axis=False))
         was_training = self.model.training
         self.model.eval()
         self.eval_model.eval()
@@ -506,36 +521,47 @@ class Learner:
 
     # -- checkpointing (trn_utils.py:631-749) -----------------------------------
     # One layout in every mode: the model's state dict, Adam's state keyed by
-    # parameter name, the grad_accum cycle's gradients by name. ``full``
-    # gathers fsdp's shards whole (a collective: every rank calls it) for
-    # the pickle backend; else the shards go to the orbax backend as they
-    # are. (``torch.distributed.checkpoint.state_dict``'s getters would
-    # take an optimizer step of lr 0 to make Adam's state where it has none
-    # yet, which moves Adam's step count: they are not used.)
+    # parameter name, the grad_accum cycle's gradients by name, whole
+    # tensors. ``full`` gathers fsdp's shards and the tensor-parallel slices
+    # whole (collectives: every rank calls it) for the pickle backend, and
+    # for the orbax backend under tensor parallelism (the ranks' slices of
+    # one name have other shapes); else fsdp's shards go to the orbax
+    # backend as they are. (``torch.distributed.checkpoint.state_dict``'s
+    # getters would take an optimizer step of lr 0 to make Adam's state
+    # where it has none yet, which moves Adam's step count: they are not
+    # used.)
 
-    @staticmethod
-    def _whole(v: torch.Tensor, cpu: bool) -> torch.Tensor:
+    def _whole(self, name: str, v: torch.Tensor, cpu: bool,
+               model_axis: bool = True) -> torch.Tensor:
+        """Parameter ``name``'s tensor ``v`` whole: fsdp's shards gathered,
+        and with ``model_axis`` the model group's slices."""
         from torch.distributed.tensor import DTensor
 
         if isinstance(v, DTensor):
             v = v.full_tensor()
+        if model_axis and self.split is not None:
+            v = self.split.whole(name, v)
         return v.detach().cpu() if cpu else v.detach()
 
-    @staticmethod
-    def _shard_like(full: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        """A whole tensor in ``target``'s layout: this rank's shard where
-        ``target`` is a DTensor, else the tensor on ``target``'s device."""
+    def _shard_like(self, name: str, full: torch.Tensor,
+                    target: torch.Tensor) -> torch.Tensor:
+        """A whole tensor of parameter ``name`` in ``target``'s layout: this
+        rank's tensor-parallel slice, then its fsdp shard where ``target``
+        is a DTensor, on ``target``'s device."""
         from torch.distributed.tensor import DTensor, distribute_tensor
 
-        full = full.to(target.device, target.dtype)
+        if self.split is not None:
+            full = self.split.local(name, full)
+        full = full.to(target.device, target.dtype).contiguous()
         if isinstance(target, DTensor):
             # every rank holds the whole tensor: no communication
             return distribute_tensor(full, target.device_mesh,
                                      target.placements, src_data_rank=None)
         return full
 
-    def _model_state(self, full: bool, cpu: bool = True) -> Dict:
-        return {k: self._whole(v, cpu) if full else v.detach()
+    def _model_state(self, full: bool, cpu: bool = True,
+                     model_axis: bool = True) -> Dict:
+        return {k: self._whole(k, v, cpu, model_axis) if full else v.detach()
                 for k, v in self.model.state_dict().items()}
 
     def _opt_state(self, full: bool) -> Optional[Dict]:
@@ -543,7 +569,7 @@ class Learner:
             return None
         sd = self.optimizer.state_dict()
         names = self._param_names  # the optimizer's order (parameters())
-        state = {names[i]: {k: self._whole(v, True) if full else v
+        state = {names[i]: {k: self._whole(names[i], v, True) if full else v
                             for k, v in st.items()}
                  for i, st in sd["state"].items()}
         groups = [{**g, "params": [names[i] for i in g["params"]]}
@@ -564,7 +590,8 @@ class Learner:
         for k, st in saved["state"].items():
             i = index[name(k)]
             p = self._params[i]
-            state[i] = {f: v if f == "step" else self._shard_like(v, p)
+            state[i] = {f: v if f == "step"
+                        else self._shard_like(name(k), v, p)
                         for f, v in st.items()}
         groups = [{**g, "params": [index[name(k)] for k in g["params"]]}
                   for g in saved["param_groups"]]
@@ -575,27 +602,24 @@ class Learner:
         """The gradients of the ``grad_accum`` cycle in flight, summed over
         the ranks, by name ({} outside a cycle). Data-parallel ranks still
         hold their own partial gradients (``_sum_grads`` runs at the end of
-        the cycle): a copy is summed. fsdp's are summed already (its
-        reduce-scatter runs at every backward)."""
+        the cycle): a copy is summed over the data group. fsdp's are summed
+        already (its reduce-scatter runs at every backward)."""
         if self._accum_count == 0:
             return {}
-        if self.sharded:
-            grads = [None if p.grad is None
-                     else self._whole(p.grad, True) if full
-                     else p.grad.detach().clone() for p in self._params]
-        elif is_dist():
-            grads = self._summed_grads(inplace=False)
-        else:
+        if self.sharded or not is_dist():
             grads = [None if p.grad is None else p.grad.detach().clone()
                      for p in self._params]
-        return {n: (g.cpu() if full else g)
+        else:
+            grads = self._summed_grads(inplace=False)
+        return {n: (self._whole(n, g, True) if full else g)
                 for n, g in zip(self._param_names, grads) if g is not None}
 
     def _restore_accum(self, count: int, grads: Dict[str, torch.Tensor]):
-        """Resume a ``grad_accum`` cycle: the saved sum on rank 0 and zeros
-        on the other data-parallel ranks (their sum is the saved sum), each
-        rank's shard of it under fsdp; a parameter without a saved gradient
-        has none on any rank."""
+        """Resume a ``grad_accum`` cycle: the saved sum on data coordinate 0
+        and zeros on the other data-parallel ranks (their sum is the saved
+        sum), each rank's shard of it under fsdp and its slice under tensor
+        parallelism; a parameter without a saved gradient has none on any
+        rank."""
         count = int(count or 0)
         if count >= self._grad_accum:
             raise ValueError(
@@ -605,8 +629,8 @@ class Learner:
             g = grads.get(name) if count else None
             if g is None:
                 p.grad = None
-            elif self.sharded or self.rank == 0:
-                p.grad = self._shard_like(g, p)
+            elif self.sharded or self.data_rank == 0:
+                p.grad = self._shard_like(name, g, p)
             else:
                 p.grad = torch.zeros_like(p)
         self._accum_count = count
@@ -620,7 +644,7 @@ class Learner:
         ``ckpt_backend.wait()``)."""
         path = Path(path) if path else self.model_file
         backend = self.ckpt_backend
-        full = not backend.collective
+        full = not backend.collective or self.split is not None
         meta = {
             "num_it": self.num_it,
             "num_epoch": self.num_epoch,
@@ -632,12 +656,13 @@ class Learner:
             "world_size": self.world_size,
             "accum_count": self._accum_count,
         }
-        # fsdp's gathers and the data-parallel sum of a cycle in flight are
-        # collectives; the rest is needed where it is written
+        # fsdp's and the model axis's gathers and the data-parallel sum of a
+        # cycle in flight are collectives; the rest is needed where it is
+        # written
         writes = backend.collective or self.is_main
-        model_state = (self._model_state(full)
-                       if writes or self.sharded else None)
-        opt_state = self._opt_state(full) if writes or self.sharded else None
+        gathers = writes or self.sharded or self.split is not None
+        model_state = self._model_state(full) if gathers else None
+        opt_state = self._opt_state(full) if gathers else None
         accum = self._accum_state(full)
         if writes:
             backend.save(path, model_state, opt_state, meta, accum)
@@ -673,7 +698,7 @@ class Learner:
         saved_world = int(meta.get("world_size", 1))
         target = self.model.state_dict()
         self.model.load_state_dict(
-            {k: self._shard_like(v, target[k]) if k in target else v
+            {k: self._shard_like(k, v, target[k]) if k in target else v
              for k, v in loaded["model"].items()}, strict=True)
         self.num_it = meta.get("num_it", 0)
         self.num_epoch = meta.get("num_epoch", 0)
