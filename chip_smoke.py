@@ -182,13 +182,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    loaded back equal to it) beside an unrecognised .pt (``[skip]``);
 28. a resize with the kernels: phase 17's I3D-NL R50 fit in float32
    (``nl_attn_fwd`` / ``nl_attn_bwd``), epoch 1 on 2 gloo ranks on cuda:0,
-   saved; epoch 2 resumed from it on one NCCL rank, twice; against a
-   straight 2-epoch run in this process: the epoch-2 loss within
-   ELASTIC_RTOL, the parameters and the statistics each within
-   ELASTIC_DRIFT of the epoch's update, 20 forward and 10 backward
-   launches an epoch in every run and rank, the txt log's resize line, and
-   the second resume bitwise equal to the first (deterministic algorithms
-   in those runs). Two controls resume the same checkpoint in this process
+   saved (the ranks of phase 33's launch, before their resize); epoch 2 resumed from it on one NCCL rank; against a straight
+   2-epoch run in this process: the epoch-2 loss within ELASTIC_RTOL, the
+   parameters and the statistics each within ELASTIC_DRIFT of the epoch's
+   update, 20 forward and 10 backward launches an epoch in every run and
+   rank, the txt log's resize line (deterministic algorithms in those runs;
+   the repeat of the resumed epoch 2, bitwise, is phase 33's). Two controls resume the same checkpoint in this process
    the wrong way (Adam's state left out; another data order, train.seed
    43): each must part from the straight run by more than ELASTIC_RTOL and
    ELASTIC_DRIFT;
@@ -234,9 +233,28 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    and with each rank drawing a dropout mask of its own slice's shape (the
    control) outside it; one ``rob_evrel`` step at roberta-base widths (12
    heads, ffn 3072) within DP_LOSS_RTOL; then the bf16 TP step and one
-   process's timed (recorded only) with the device-busy share.
+   process's timed (recorded only) with the device-busy share;
+33. the mid-run resize: phase 28's I3D-NL R50 fit in float32 on 2 gloo
+   ranks on cuda:0 through ``build_learner`` (one launch, run in phase 28,
+   whose saved epoch 1 it gives), ``Learner.request_resize(1)``
+   before ``fit``: rank 1 leaves at the end of epoch 1 (after the
+   validation and the saves), rank 0 fits epoch 2 alone; against phase
+   28's straight run (no new one): the epoch-2 loss within ELASTIC_RTOL,
+   the parameters and the statistics within ELASTIC_DRIFT of the epoch's
+   update, phase 28's two wrong resumes outside those limits, epoch 2
+   bitwise phase 28's checkpoint resume (the same epoch 1, then one rank
+   under deterministic algorithms), the txt log's resize line, and 20
+   ``nl_attn_fwd`` / 10 ``nl_attn_bwd`` launches an epoch on each rank
+   that trained it (rank 1: epoch 1 only);
+34. the port's dry run (``python -m vidsitu_tpu_torch.dryrun --n 2
+   --device cuda``, the counterpart of ``__graft_entry__.dryrun_multichip``)
+   in a subprocess: 2 gloo ranks sharing the card (``data`` [2]; the
+   tensor-parallel step on ``data`` x ``model`` [1, 2]) against one
+   process at the JAX entry's tiny sizes and limits: the three tasks'
+   steps, the TP step, the segmented ancestry beam decode, the extractor
+   and an elastic 2 -> 1 resume; its 8 lines and its receipt printed.
 
-Phases 1-31 run as before, at the same depth and repeats. A child that
+Phases 1-32 run as before, at the same depth and repeats. A child that
 fails, a launch past DP_TIMEOUT_S or a disagreement fails the smoke.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
@@ -318,8 +336,16 @@ EVALB_KEYS = ("Per_Ev_Top_1", "Per_Ev_Top_5", "recall_macro_1_th_9")
 DP_METRIC_ATOL = 0.05
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """Print; a phase's line (``[n name] ...``) ends with the seconds since
+    the script started."""
+    text = " ".join(str(x) for x in a)
+    if text.startswith("["):
+        text += f"  @{time.perf_counter() - T0:.0f}s"
+    print(text, flush=True)
 
 
 def bound(n_bytes: float, n_ops: float, kind: str = "bf16"):
@@ -2087,7 +2113,7 @@ def child_checks(task, dev, rank, dtype=torch.bfloat16):
 
 
 def dist_child(task, spec_path) -> int:
-    """One rank of a torchrun launch (phases 24-25, 28-32): join the process
+    """One rank of a torchrun launch (phases 24-25, 28-33): join the process
     group, run ``task`` through the port's entry point with every kernel
     count at 0, then check the task's kernels against their plain versions
     at this rank's shapes; write the rank's JSON result."""
@@ -2117,14 +2143,15 @@ def dist_child(task, spec_path) -> int:
     with (deterministic_algorithms() if spec.get("deterministic")
           else contextlib.nullcontext()):
         res = {"fit": child_fit, "srl": child_srl, "extract": child_extract,
-               "drop": child_drop, "fsdp": child_fsdp,
-               "tp": child_tp}[kind](spec, dev)
+               "drop": child_drop, "fsdp": child_fsdp, "tp": child_tp,
+               "resize": child_resize}[kind](spec, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**{k: v for k, v in A.LAUNCHES_BY_ENTRY.items() if v},
                 "beam_gather_rows": B.LAUNCHES}
     # phase 29's SRL training launches no kernel
-    checks = child_checks(kind, dev, rank, dtype) if kind != "drop" else {}
+    checks = child_checks("fit" if kind == "resize" else kind, dev, rank,
+                          dtype) if kind != "drop" else {}
     out = {"task": task, "rank": rank, "world": world,
            "local_rank": int(os.environ["LOCAL_RANK"]), "device": str(dev),
            "backend": torch.distributed.get_backend(), "wall_s": wall,
@@ -2462,10 +2489,12 @@ def phase_elastic(paths, root, p17, keep=None):
     resumes that checkpoint for epoch 2; against a straight 2-epoch run in
     this process. The epoch-2 loss within ELASTIC_RTOL, the parameters and
     the statistics each within ELASTIC_DRIFT of the epoch's update; 20
-    forward and 10 backward launches an epoch in every run; a second resume
-    on 1 rank bitwise equal to the first; two wrong resumes (controls)
-    outside every limit. ``keep`` takes the straight run's epoch-1 and
-    epoch-2 parameters and its epoch-2 loss (phase 31's reference)."""
+    forward and 10 backward launches an epoch in every run; two wrong
+    resumes (controls) outside every limit. ``keep`` takes the straight
+    run's epoch-1 and epoch-2 parameters and its epoch-2 loss (phases 31
+    and 33's reference), the resumed run's epoch-2 parameters and step
+    losses (phase 33 repeats them bitwise) and the 2-rank run (phase 33's
+    launch: it saves epoch 1, then resizes)."""
     from vidsitu_tpu_torch import main as port_main
     from vidsitu_tpu_torch.ops import attention as A
 
@@ -2478,28 +2507,24 @@ def phase_elastic(paths, root, p17, keep=None):
     per_epoch = (NL_BLOCKS * (steps + eval_batches), NL_BLOCKS * steps)
     walls, launches = {}, {}
 
-    two, walls["save_2rank"] = torchrun("elastic_save", DP_RANKS, {
-        "device": "cuda:0", "backend": "gloo", "deterministic": True,
+    # the 2-rank run is phase 33's launch: its ranks save epoch 1, then
+    # resize to one rank
+    two, walls["save_2rank"] = resize_launch(paths, root)
+    ckpt = root / "tmp_rsz" / "model_epochs" / uid / "mdl_ep_1.ckpt"
+    launches["save_2rank"] = [(r["launches_by_epoch"][0].get(fwd, 0),
+                               r["launches_by_epoch"][0].get(bwd, 0))
+                              for r in two]
+    res, walls["resume"] = torchrun("elastic_resume", 1, {
+        "device": "cuda", "backend": "nccl", "deterministic": True,
         "dtype": "float32", "argv": vb_train_args(
-            paths, root, "--train.epochs=1", *f32,
-            f"--misc.tmp_path={root / 'tmp_el2'}", "--device=cuda:0",
-            "--dist_backend=gloo")}, root)
-    ckpt = root / "tmp_el2" / "model_epochs" / uid / "mdl_ep_1.ckpt"
-    launches["save_2rank"] = [(r["launches"].get(fwd, 0),
-                               r["launches"].get(bwd, 0)) for r in two]
-    resumed = []
-    for tag in ("resume", "resume_again"):
-        res, walls[tag] = torchrun(f"elastic_{tag}", 1, {
-            "device": "cuda", "backend": "nccl", "deterministic": True,
-            "dtype": "float32", "argv": vb_train_args(
-                paths, root, "--train.epochs=1", *f32, "--train.resume=True",
-                f"--train.resume_path={ckpt}",
-                f"--misc.tmp_path={root / ('tmp_el1_' + tag)}",
-                "--dist_backend=nccl")}, root)
-        launches[tag] = [(r["launches"].get(fwd, 0),
-                          r["launches"].get(bwd, 0)) for r in res]
-        resumed.append((res[0], root / f"tmp_el1_{tag}" / "model_epochs"
-                        / uid / "mdl_ep_2.ckpt"))
+            paths, root, "--train.epochs=1", *f32, "--train.resume=True",
+            f"--train.resume_path={ckpt}",
+            f"--misc.tmp_path={root / 'tmp_el1_resume'}",
+            "--dist_backend=nccl")}, root)
+    launches["resume"] = [(r["launches"].get(fwd, 0),
+                           r["launches"].get(bwd, 0)) for r in res]
+    r1 = res[0]
+    path1 = root / "tmp_el1_resume" / "model_epochs" / uid / "mdl_ep_2.ckpt"
     A.reset_launches()
     t0 = time.perf_counter()
     with deterministic_algorithms():
@@ -2522,7 +2547,7 @@ def phase_elastic(paths, root, p17, keep=None):
     # with another data order for epoch 2 (the sampler's seed)
     payload = torch.load(ckpt, map_location="cpu", weights_only=True)
     payload["optimizer_state_dict"] = None
-    no_adam = root / "tmp_el2" / "no_adam.ckpt"
+    no_adam = root / "tmp_rsz" / "no_adam.ckpt"
     torch.save(payload, no_adam)
     controls = {}
     for tag, path, extra in (("no_adam", no_adam, ()),
@@ -2541,18 +2566,21 @@ def phase_elastic(paths, root, p17, keep=None):
         controls[tag]["loss"] = (abs(c_loss - s_rows[1]["trn_loss"])
                                  / abs(s_rows[1]["trn_loss"]))
 
-    (r1, path1), (r2, path2) = resumed
     loss2, want2 = r1["epochs"][-1]["trn_loss"], s_rows[1]["trn_loss"]
     rel_loss = abs(loss2 - want2) / abs(want2)
-    sd1, sd2 = ckpt_leaves(path1), ckpt_leaves(path2)
+    sd1 = ckpt_leaves(path1)
+    if keep is not None:
+        keep.update(resumed_sd=sd1, resumed_losses=r1["step_losses"],
+                    resize=(two, walls["save_2rank"]))
     rel = {p: drift(sd1, s_sd, s_sd, s_sd1, p)[0] for p in ELASTIC_DRIFT}
     worst = drift(sd1, s_sd, s_sd, s_sd1, "params")[1]
     rel1 = {p: drift(ckpt_leaves(ckpt), s_sd1, s_sd, s_sd1, p)[0]
             for p in ELASTIC_DRIFT}
-    bitwise = all(torch.equal(sd1[k], sd2[k]) for k in sd1)
-    log(f"[28 elastic] I3D-NL R50 float32: 2 gloo ranks fit epoch 1 "
-        f"({walls['save_2rank']:.1f} s), 1 NCCL rank resumes it for epoch 2 "
-        f"({walls['resume']:.1f} s; again {walls['resume_again']:.1f} s), "
+    log(f"[28 elastic] I3D-NL R50 float32: 2 gloo ranks fit epoch 1 and "
+        f"save it (phase 33's launch, its resize and rank 0's epoch 2 "
+        f"included: {walls['save_2rank']:.1f} s), 1 NCCL rank resumes it "
+        f"for epoch 2 "
+        f"({walls['resume']:.1f} s), "
         f"straight 2 epochs on 1 process ({walls['straight_1proc']:.1f} s)")
     log(f"[28 elastic] epoch-2 train loss: resumed {loss2!r}, straight "
         f"{want2!r} (relative {rel_loss:.2e}, limit {ELASTIC_RTOL:g}); "
@@ -2563,16 +2591,16 @@ def phase_elastic(paths, root, p17, keep=None):
         f"straight, of the straight run's epoch-2 update: {rel} (limits "
         f"{ELASTIC_DRIFT}; after epoch 1, 2 ranks vs 1 process: {rel1}); "
         f"largest parameter differences of the leaf's largest value "
-        f"{worst}; second resume bitwise equal: {bitwise}")
+        f"{worst}")
     log(f"[28 elastic] controls, resumed the wrong way (the same readings, "
         f"each above its limit): {controls}")
     log(f"[28 elastic] launches ({fwd}, {bwd}) by run and rank: {launches} "
         f"(want {per_epoch} an epoch); kernel vs plain "
-        f"{[r['checks'] for r in two + [r1, r2]]}")
+        f"{[r['checks'] for r in two + [r1]]}")
     assert "resumed a 2-process checkpoint on 1 processes" in (
         root / "tmp_el1_resume" / "txt_logs" / f"{uid}.txt").read_text()
     assert launches["save_2rank"] == [per_epoch] * DP_RANKS, launches
-    assert launches["resume"] == launches["resume_again"] == [per_epoch]
+    assert launches["resume"] == [per_epoch], launches
     assert launches["straight_1proc"] == [(2 * per_epoch[0],
                                            2 * per_epoch[1])], launches
     assert rel_loss <= ELASTIC_RTOL, (loss2, want2)
@@ -2580,10 +2608,9 @@ def phase_elastic(paths, root, p17, keep=None):
     limits = {**ELASTIC_DRIFT, "loss": ELASTIC_RTOL}
     assert all(c[p] > lim for c in controls.values()
                for p, lim in limits.items()), controls
-    assert bitwise and r1["step_losses"] == r2["step_losses"]
     return {"walls_s": walls, "launches": launches, "loss_rel_err": rel_loss,
             "drift": rel, "drift_epoch1": rel1, "worst_leaf": worst[0],
-            "controls": controls, "second_resume_bitwise": bitwise}
+            "controls": controls}
 
 
 # phase 29: 2 gloo ranks against one process, SRL at full width in float32
@@ -3233,6 +3260,156 @@ def phase_tp(root, dev):
             "wall_s": wall}
 
 
+# phase 34: the dry run's subprocess (two torchrun launches, one process's
+# references)
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_RANKS = 2
+
+
+def child_resize(spec, dev):
+    """Phase 33's rank: ``build_learner`` on the spec's argv (phase 28's
+    float32 fit), ``request_resize(1)``, ``fit``. Returns the step losses,
+    the kernel launches of each epoch this rank trained (counted up to the
+    end of the epoch's validation) and whether the rank left; on the rank
+    that fits to the end, the tracker's epochs, the txt log's resize line
+    and the epoch-2 checkpoint."""
+    from vidsitu_tpu_torch import main as port_main
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.train.build import build_learner
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    uid, overrides, _ = port_main.parse_cli(spec["argv"])
+    cfg = get_cfg_with_overrides(uid, **overrides)
+    cfg.freeze()
+    learner = build_learner(cfg, uid, dev)
+    learner.request_resize(1)
+    counts, validate = [{}], learner.validate
+
+    def validate_and_count(*a, **kw):
+        res = validate(*a, **kw)
+        counts.append(dict(A.LAUNCHES_BY_ENTRY))
+        return res
+
+    learner.validate = validate_and_count
+    with recorded_step_losses() as losses:
+        learner.fit(cfg.train.epochs, cfg.train.lr)
+    out = {"step_losses": losses, "left": learner.left,
+           "launches_by_epoch": [{k: v - before.get(k, 0)
+                                  for k, v in after.items()}
+                                 for before, after in zip(counts, counts[1:])]}
+    if not learner.left:
+        out.update(epochs=tracker_rows(cfg), world_after=learner.world_size,
+                   ckpt=str(learner.model_epoch_dir / "mdl_ep_2.ckpt"),
+                   resize_line=[ln for ln in learner.txt_log_file.read_text()
+                                .splitlines() if "elastic resize" in ln])
+    return out
+
+
+def resize_launch(paths, root):
+    """Phase 33's launch (run in phase 28, whose 2-rank run it is): phase
+    28's I3D-NL R50 fit in float32 (``nl_attn_fwd`` / ``nl_attn_bwd``) on
+    2 gloo ranks on cuda:0 through ``build_learner``, ``request_resize(1)``
+    before ``fit``: both ranks fit epoch 1 and save it, rank 1 leaves, rank
+    0 fits epoch 2 alone. Every rank's result and the launch's wall."""
+    return torchrun("resize", DP_RANKS, {
+        "device": "cuda:0", "backend": "gloo", "deterministic": True,
+        "dtype": "float32", "argv": vb_train_args(
+            paths, root, "--train.epochs=2", "--train.dtype=float32",
+            "--run_final_val=False", f"--misc.tmp_path={root / 'tmp_rsz'}",
+            "--device=cuda:0", "--dist_backend=gloo")}, root)
+
+
+def phase_resize(straight, controls):
+    """Phase 33: the mid-run resize on the card (``resize_launch``, run in
+    phase 28: ``straight["resize"]``). Against phase 28's straight run
+    (``straight``): the epoch-2 loss within ELASTIC_RTOL, the parameters
+    and the statistics within ELASTIC_DRIFT of the epoch's update, and
+    bitwise phase 28's checkpoint resume; phase 28's two wrong resumes
+    (``controls``) outside every limit; 20 forward and 10 backward launches
+    an epoch on each rank that trained it."""
+    from vidsitu_tpu_torch.ops import attention as A
+
+    fwd = A.kernel_entry(torch.float32, 256)
+    bwd = A.bwd_kernel_entry(torch.float32, 256)
+    steps, eval_batches = 2, -(-8 // VB_BS)
+    per_epoch = (NL_BLOCKS * (steps + eval_batches), NL_BLOCKS * steps)
+    res, wall = straight["resize"]
+    r0 = res[0]
+    launches = [[(e.get(fwd, 0), e.get(bwd, 0)) for e in r["launches_by_epoch"]]
+                for r in res]
+    loss2, want2 = r0["epochs"][-1]["trn_loss"], straight["want2"]
+    rel_loss = abs(loss2 - want2) / abs(want2)
+    sd = ckpt_leaves(r0["ckpt"])
+    s_sd, s_sd1 = straight["s_sd"], straight["s_sd1"]
+    rel = {p: drift(sd, s_sd, s_sd, s_sd1, p)[0] for p in ELASTIC_DRIFT}
+    worst = drift(sd, s_sd, s_sd, s_sd1, "params")[1]
+    # the same epoch 1, then epoch 2 on one rank under deterministic
+    # algorithms: phase 28's checkpoint resume, here the in-memory move
+    bitwise = all(torch.equal(sd[k], v)
+                  for k, v in straight["resumed_sd"].items())
+    log(f"[33 resize] I3D-NL R50 float32, 2 gloo ranks on cuda:0 resized to "
+        f"1 after epoch 1 ({wall:.1f} s): {r0['resize_line']}; rank 1 left: "
+        f"{res[1]['left']}; epoch-2 train loss {loss2!r} against the "
+        f"straight run's {want2!r} (relative {rel_loss:.2e}, limit "
+        f"{ELASTIC_RTOL:g}); step losses rank 0 {r0['step_losses']}, rank 1 "
+        f"{res[1]['step_losses']}")
+    log(f"[33 resize] parameters and statistics after epoch 2 against the "
+        f"straight run, of its epoch-2 update: {rel} (limits "
+        f"{ELASTIC_DRIFT}); largest parameter differences of the leaf's "
+        f"largest value {worst}; bitwise phase 28's checkpoint resume: "
+        f"{bitwise}; phase 28's wrong resumes {controls}")
+    log(f"[33 resize] launches ({fwd}, {bwd}) by rank and epoch: {launches} "
+        f"(want {per_epoch} an epoch, rank 1 epoch 1 only); kernel vs plain "
+        f"{[r['checks'] for r in res]}")
+    assert not r0["left"] and res[1]["left"] and r0["world_after"] == 1
+    assert r0["resize_line"] == [
+        "elastic resize at epoch 1: {'data': 2} -> {'data': 1}"], r0
+    assert launches == [[per_epoch] * 2, [per_epoch]], launches
+    assert rel_loss <= ELASTIC_RTOL, (loss2, want2)
+    assert all(rel[p] <= lim for p, lim in ELASTIC_DRIFT.items()), rel
+    limits = {**ELASTIC_DRIFT, "loss": ELASTIC_RTOL}
+    assert all(c[p] > lim for c in controls.values()
+               for p, lim in limits.items()), controls
+    assert bitwise and r0["step_losses"][2:] == straight["resumed_losses"]
+    return {"wall_s": wall, "launches": launches, "loss_rel_err": rel_loss,
+            "drift": rel, "worst_leaf": worst[0],
+            "bitwise_phase28_resume": bitwise}
+
+
+def phase_dryrun(root):
+    """Phase 34: ``python -m vidsitu_tpu_torch.dryrun --n 2 --device cuda``
+    in a subprocess (the port's counterpart of ``__graft_entry__``'s
+    ``dryrun_multichip``): 2 gloo ranks sharing cuda:0 against one process
+    at the JAX entry's tiny sizes, every line printed and passing, rc 0,
+    its receipt printed."""
+    receipt = Path(root) / "MULTICHIP_torch.json"
+    logf = Path(root) / "dryrun.log"
+    cmd = [sys.executable, "-m", "vidsitu_tpu_torch.dryrun", "--n",
+           str(DRYRUN_RANKS), "--device", "cuda", "--receipt", str(receipt)]
+    t0 = time.perf_counter()
+    with open(logf, "w") as f:
+        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                            cwd=str(REPO), timeout=DRYRUN_TIMEOUT_S).returncode
+    wall = time.perf_counter() - t0
+    text = logf.read_text(errors="replace")
+    lines = [ln for ln in text.splitlines() if ln.startswith("dryrun")]
+    for ln in lines:
+        log(f"[34 dryrun] {ln}")
+    run = (json.loads(receipt.read_text())["runs"][0] if receipt.is_file()
+           else None)
+    log(f"[34 dryrun] receipt {json.dumps(run)}; subprocess wall "
+        f"{wall:.1f} s")
+    if rc != 0 or run is None or not run["ok"]:
+        log(text[-6000:])
+        raise RuntimeError(f"dryrun: rc {rc} after {wall:.1f} s")
+    assert len(lines) == 8 and lines[-1] == (
+        f"dryrun_multichip({DRYRUN_RANKS}) OK: vb_arg+vb+evrel verified"), lines
+    assert run["mesh"] == {"steps": {"data": 2}, "tp": {"data": 1, "model": 2},
+                           "resume": {"data": 1}}, run["mesh"]
+    assert run["device"] == torch.cuda.get_device_name(0), run
+    return {"wall_s": wall, "lines": lines, "receipt": run}
+
+
 @contextlib.contextmanager
 def deterministic_algorithms():
     """PyTorch's deterministic algorithms (cuDNN's among them, and the
@@ -3387,12 +3564,20 @@ def main() -> int:
             dropout = phase_dropout_ranks(Path(tmp))
         fsdp = phase_fsdp_update(vb_paths, vb_root)
         fsdp_orbax = phase_fsdp_orbax(vb_paths, vb_root, straight)
+        # tensor parallelism: each rank's counts set to 0 just before its
+        # entry point (dist_child); the launches are those of its main.py run
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+            tp = phase_tp(Path(tmp), dev)
+        # the mid-run resize: each rank's counts set to 0 just before its
+        # build_learner and fit (dist_child)
+        torch.cuda.empty_cache()
+        resize = phase_resize(straight, elastic["controls"])
         del straight
-    # tensor parallelism: each rank's counts set to 0 just before its entry
-    # point (dist_child); the launches are those of its main.py run
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-        tp = phase_tp(Path(tmp), dev)
+    # the dry run: no kernel of the port lies on its path (SlowFast, and
+    # decoding on the ancestry route, as the JAX entry's)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
+        dry = phase_dryrun(Path(tmp))
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
@@ -3468,7 +3653,10 @@ def main() -> int:
                        fsdp_fwd, 0), "orbax_fit": [
                        n for n, _ in fsdp_orbax["launches"].values()]},
                    fsdp_update=fsdp, fsdp_orbax=fsdp_orbax,
-                   dropout_ranks=dropout),
+                   dropout_ranks=dropout,
+                   launches_resize=[[n for n, _ in r]
+                                    for r in resize["launches"]],
+                   resize=resize, dryrun_wall_s=dry["wall_s"]),
         kernel_row("beam_gather_rows", "beam_gather.cu",
                    "benchmarks/probe_beam_gather.py:62", gather_launches,
                    gather_err, gather_times[0], gather_times[1],
@@ -3542,7 +3730,9 @@ def main() -> int:
                                      elastic["launches"].items()},
                    launches_fsdp={"update_1rank": fsdp["fsdp_launches"].get(
                        fsdp_bwd, 0), "orbax_fit": [
-                       n for _, n in fsdp_orbax["launches"].values()]}),
+                       n for _, n in fsdp_orbax["launches"].values()]},
+                   launches_resize=[[n for _, n in r]
+                                    for r in resize["launches"]]),
         kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
                    slice_launches["staged_copy"], 0.0, copy_ms["staged"],
                    copy_ms["clone"], *copy_bound, copy_ms["clone"]),

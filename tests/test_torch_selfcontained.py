@@ -195,6 +195,8 @@ REIMPLEMENTED = {
     "parallel/collectives.py": ("parallel/collectives.py", "jax"),
     "parallel/mesh.py": ("parallel/mesh.py", "jax"),
     "parallel/tensor.py": ("parallel/mesh.py", "jax"),
+    # the root entry beside the JAX package
+    "dryrun.py": ("../__graft_entry__.py", "jax"),
 }
 
 

@@ -33,7 +33,13 @@ Modes:
   * ``collectives``: ``parallel.collectives`` and ``parallel.mesh`` on
     float64 values that float32 cannot hold;
   * ``mesh``: the mesh of ``spec["cfg"]``'s axes and this rank's data and
-    model groups.
+    model groups;
+  * ``fit``: for each case file, ``Learner.fit`` of the case's whole model
+    placed on the run's mesh as ``build_learner`` places one, on this
+    rank's loader shard, validated each epoch, optionally resuming a
+    checkpoint first and optionally resized (``Learner.request_resize``)
+    at the first epoch boundary; a resize that took place ends the launch
+    (the ranks that left take part in nothing after it).
 """
 
 import contextlib
@@ -284,6 +290,125 @@ def modules_check(spec):
     return res
 
 
+def fit_case(case, tmp):
+    """One case of mode ``fit`` on this rank (also called in the test's own
+    process, without a process group): the case's whole model placed on
+    this run's mesh by ``train.build.place_model``, this rank's loader
+    shard, ``EvalB`` (task ``vb``) or ``EvalB_Gen`` with a counting
+    stand-in for the row gather, a ``Learner`` that optionally resumes
+    ``resume`` (optimizer included), tries a grow (``grow``: the error it
+    raises) and requests a resize to ``resize`` ranks, then fits ``epochs``
+    epochs. ``drop_adam`` has the resize leave Adam's state out (a
+    control). Returns the global step losses, each validation's metrics,
+    the row gathers by epoch, what the resize saw, the error ``fit``
+    raised, and on the ranks of the run after it the state dict (whole
+    tensors), the counters, the dropout generator's state and rank 0's txt
+    log."""
+    from vidsitu_tpu_torch.data import get_data
+    from vidsitu_tpu_torch.evaluation.evaluators import EvalB, EvalB_Gen
+    from vidsitu_tpu_torch.gen import beam
+    from vidsitu_tpu_torch.models.selector import build_srl_generate_fn
+    from vidsitu_tpu_torch.parallel.mesh import make_mesh
+    from vidsitu_tpu_torch.train.build import place_model
+    from vidsitu_tpu_torch.train.learner import Learner
+    from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
+
+    name = case["name"]
+    cfg = get_cfg_with_overrides(name, **{"misc.tmp_path": tmp,
+                                          **case["cfg"]})
+    dev = torch.device("cpu")
+    mesh = make_mesh(cfg) if C.is_dist() else None
+    model, eval_model = place_model(case["model"], cfg, mesh, dev)
+    data = get_data(cfg, num_shards=C.data_world_size(),
+                    shard_id=C.data_rank())
+    comm = data.valid_dl.dataset.comm
+    ranks = dict(rank=C.data_rank(), world_size=C.data_world_size(),
+                 model_rank=C.model_rank())
+    if cfg.task_type == "vb":
+        evalb = EvalB(cfg, comm, eval_model, dev, **ranks)
+    else:
+        evalb = EvalB_Gen(cfg, comm, build_srl_generate_fn(
+            cfg, comm, eval_model), dev, **ranks)
+    learner = Learner(name, cfg, model, data, evalb, dev,
+                      eval_model=eval_model, mesh=mesh)
+    if case.get("resume"):
+        learner.load_model_dict(case["resume"], load_opt=True)
+    out = {"error": None, "grow": None}
+    if case.get("grow"):
+        try:
+            learner.request_resize(case["grow"])
+        except ValueError as e:
+            out["grow"] = str(e)
+    if case.get("resize"):
+        learner.request_resize(case["resize"])
+    losses, metrics, gathers, at_resize = [], [], [], {}
+    step, validate = learner.train_step, learner.validate
+    apply, restore = learner._apply_resize, learner._restore_opt
+
+    def train_step(batch):
+        loss = step(batch)
+        losses.append(float(loss))
+        return loss
+
+    def validate_and_keep(*a, **kw):
+        res = validate(*a, **kw)
+        metrics.append(res[1])
+        return res
+
+    def apply_resize():
+        at_resize.update(accum_count=learner._accum_count,
+                         num_epoch=learner.num_epoch,
+                         world=learner.world_size, steps=decode_steps())
+        if case.get("drop_adam"):
+            learner._restore_opt = lambda pending: restore(
+                {**pending, "opt": {**pending["opt"], "state": {}}})
+        return apply()
+
+    def decode_steps():
+        gen = getattr(learner.eval_fn, "generate_fn", None)
+        return list(gen.steps) if gen is not None else None
+
+    def counting(leaves, rows):
+        gathers.append((learner.num_epoch,
+                        sorted({x.shape[1] for x in leaves if x.dim() == 4})))
+        return plain(leaves, rows)
+
+    learner.train_step, learner.validate = train_step, validate_and_keep
+    learner._apply_resize = apply_resize
+    plain, beam.gather_rows = beam.gather_rows, counting
+    try:
+        learner.fit(case["epochs"], case["lr"])
+    except Exception as e:  # noqa: BLE001 - the test reads it
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        beam.gather_rows = plain
+    out.update(losses=losses, metrics=metrics, gathers=gathers,
+               at_resize=at_resize, left=learner.left, steps=decode_steps(),
+               resized=learner._resized)
+    if learner.left:
+        return out
+    out.update(
+        state_dict={k: learner._whole(k, v, True).clone()
+                    for k, v in learner.model.state_dict().items()},
+        num_it=learner.num_it, num_epoch=learner.num_epoch,
+        world=C.get_world_size(), data=[learner.data_rank, learner.data_world],
+        mesh=learner._mesh_shape(), sharded=learner.sharded,
+        split=sorted(learner.split.dims) if learner.split else [],
+        rng=learner.dropout_gen.get_state(),
+        log=(learner.txt_log_file.read_text() if learner.is_main else None))
+    return out
+
+
+def mode_fit(spec, rank):
+    out = {}
+    for path in spec["cases"]:
+        case = torch.load(path, weights_only=False)
+        out[case["name"]] = res = fit_case(case, spec["tmp"])
+        if res["resized"] or res["left"]:
+            break
+    return out
+
+
 def mode_steps(spec, rank):
     out = {}
     for path in spec["cases"]:
@@ -400,7 +525,8 @@ def main():
     init_distributed("cpu", "gloo", timeout_s=TIMEOUT_S)
     rank = C.get_rank()
     out = {"steps": mode_steps, "main": mode_main, "extract": mode_extract,
-           "collectives": mode_collectives, "mesh": mode_mesh}[mode](
+           "collectives": mode_collectives, "mesh": mode_mesh,
+           "fit": mode_fit}[mode](
         spec, rank)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "vidsitu_tpu"))

@@ -79,6 +79,20 @@ class _RankedEvaluator:
         self._merge_seq = 0
         self._merge_token: Optional[str] = None
 
+    def rebind(self, model, rank: int, world_size: int,
+               model_rank: int = 0):
+        """A mid-run resize (``Learner.request_resize``; the JAX package's
+        ``rebind_mesh``, evaluators.py:88): evaluate the survivors' ``model``
+        as data coordinate ``rank`` of ``world_size``, model coordinate
+        ``model_rank``. The run token and the merge's sequence number are
+        the same on every survivor and stay."""
+        self.rank, self.world_size = rank, world_size
+        self.model_rank = model_rank
+        self._bind_model(model)
+
+    def _bind_model(self, model):
+        self.model = model
+
     def _run_token(self) -> str:
         """This run's token, rank 0's, on every rank: it tells this run's
         markers from those a crashed run with the same uid left. A failed
@@ -178,6 +192,11 @@ class EvalB_Gen(_RankedEvaluator):
         self.split_type = split_type
         self.evl_met = EvalFnCap(cfg, comm, met_keys=["cider", "bleu", "rouge"])
         self.batch_seconds: List[float] = []
+
+    def _bind_model(self, model):
+        from ..models.selector import build_srl_generate_fn
+
+        self.generate_fn = build_srl_generate_fn(self.cfg, self.comm, model)
 
     def run_model(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         t0 = time.perf_counter()

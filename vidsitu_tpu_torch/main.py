@@ -86,8 +86,10 @@ def main_fn(cfg, uid: str, device, weights: str = "",
     if is_training(cfg):
         learner.fit(epochs=cfg.train.epochs, lr=cfg.train.lr)
         # preempted: the state is saved; skip the final validation so that
-        # the process exits inside the grace period
-        if not learner._preempt_requested and cfg.run_final_val:
+        # the process exits inside the grace period. A rank that left the
+        # run at a resize validates no more either.
+        if not (learner._preempt_requested or learner.left) and \
+                cfg.run_final_val:
             print("Running Final Validation using best model")
             learner.load_model_dict(str(learner.model_file), load_opt=False)
             loss, acc, _ = learner.validate(write_to_file=True)

@@ -321,8 +321,14 @@ class DecoderLayer(EncoderLayer):
 
     def forward(self, x: torch.Tensor, self_mask=None,
                 enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                enc_mask=None, self_cache=None, cache_index=None, anc=None):
+                enc_mask=None, self_cache=None, cache_index=None, anc=None,
+                enc_out: Optional[torch.Tensor] = None):
+        """``enc_kv``: the cross K/V (a decode cache's); else ``enc_out``'s
+        are projected here, inside the layer's call, where an fsdp-sharded
+        layer's parameters are gathered."""
         new_cache = None
+        if self.has_cross and enc_kv is None and enc_out is not None:
+            enc_kv = self.cross_attn.project_kv(enc_out)
 
         def self_block(y):
             nonlocal new_cache
@@ -452,11 +458,8 @@ class TransformerDecoder(_Embeddings):
         if self_pad_mask is not None:
             mask = mask + make_padding_mask(self_pad_mask)
         enc_mask = make_padding_mask(enc_pad_mask)
-        enc_kv = None
         for layer in self.layers:
-            if self.has_cross and enc_out is not None:
-                enc_kv = layer.cross_attn.project_kv(enc_out)
-            x, _ = layer(x, mask, enc_kv, enc_mask)
+            x, _ = layer(x, mask, enc_mask=enc_mask, enc_out=enc_out)
         return self._logits(x)
 
     def build_cache(self, batch: int, max_len: int,

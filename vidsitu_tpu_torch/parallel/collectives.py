@@ -15,6 +15,15 @@ share this rank's model coordinate, and what the split layers reduce sums
 over the *model group*. ``parallel.mesh.make_mesh`` records both
 (:func:`set_axis_groups`); without a model axis the data group is every
 rank and there is no model group.
+
+A mid-run resize (``train.learner.Learner.request_resize``) shrinks the run
+to ranks 0..n-1. ``torch.distributed`` cannot shrink the default group, so
+the survivors record a *world group* of their own (:func:`set_world_group`)
+and every helper here reduces over it: ``get_rank`` / ``get_world_size``,
+``synchronize``, the objects' broadcast and gather, the float64 sums, and
+the data group where no ``model`` axis makes one. A rank that left
+(:func:`leave`) takes part in no collective: its ``synchronize`` returns at
+once.
 """
 
 from __future__ import annotations
@@ -30,12 +39,36 @@ def is_dist() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+# the ranks of the run: None is the default group (every rank); after a
+# resize, the survivors' group. ``left``: this rank left the run at a resize
+_WORLD: Dict[str, Any] = {"group": None, "left": False}
+
+
+def set_world_group(group=None) -> None:
+    """The ranks of the run from now on (None: the default group)."""
+    _WORLD.update(group=group, left=False)
+
+
+def leave() -> None:
+    """This rank left the run at a resize: it joins no collective again."""
+    _WORLD.update(group=None, left=True)
+
+
+def world_group():
+    """The group of every rank of the run; None is the default group."""
+    return _WORLD["group"]
+
+
+def _or_world(group):
+    return world_group() if group is None else group
+
+
 def get_rank() -> int:
-    return dist.get_rank() if is_dist() else 0
+    return dist.get_rank(world_group()) if is_dist() else 0
 
 
 def get_world_size() -> int:
-    return dist.get_world_size() if is_dist() else 1
+    return dist.get_world_size(world_group()) if is_dist() else 1
 
 
 def is_main_process() -> bool:
@@ -53,9 +86,9 @@ def set_axis_groups(data=None, model=None) -> None:
 
 
 def data_group():
-    """The ranks that split the batch with this one (data x fsdp); None
-    is the default group."""
-    return _AXIS_GROUPS["data"]
+    """The ranks that split the batch with this one (data x fsdp): the
+    world group without a model axis (None: the default group)."""
+    return _or_world(_AXIS_GROUPS["data"])
 
 
 def model_group():
@@ -85,33 +118,34 @@ def model_rank() -> int:
 
 
 def synchronize() -> None:
-    """Barrier across every rank (reference synchronize, trn_utils.py:64)."""
-    if get_world_size() > 1:
-        dist.barrier()
+    """Barrier across every rank of the run (reference synchronize,
+    trn_utils.py:64); nothing on a rank that left it."""
+    if not _WORLD["left"] and get_world_size() > 1:
+        dist.barrier(group=world_group())
 
 
 def collective_device() -> torch.device:
     """Where the host-side reductions' tensors go: NCCL takes only CUDA
     tensors, gloo takes CPU ones."""
-    if is_dist() and dist.get_backend() == "nccl":
+    if is_dist() and dist.get_backend(world_group()) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 
 def _sum_float64(values: List[float], group=None) -> List[float]:
     t = torch.tensor(values, dtype=torch.float64, device=collective_device())
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, group=_or_world(group))
     return t.tolist()
 
 
 def _size(group) -> int:
-    return dist.get_world_size(group) if is_dist() else 1
+    return dist.get_world_size(_or_world(group)) if is_dist() else 1
 
 
 def reduce_dict(input_dict: Dict[str, float], average: bool = True,
                 group: Optional[Any] = None) -> Dict:
     """Sum (or mean) of a dict of host scalars over the ranks of ``group``
-    (None: every rank), in float64 (reference reduce_dict,
+    (None: every rank of the run), in float64 (reference reduce_dict,
     trn_utils.py:79-103)."""
     world = _size(group)
     if world == 1:
@@ -123,7 +157,8 @@ def reduce_dict(input_dict: Dict[str, float], average: bool = True,
 
 def reduce_dict_corr(input_dict: Dict[str, float], nums: float,
                      group: Optional[Any] = None) -> Dict:
-    """Count-weighted mean over the ranks of ``group`` (None: every rank),
+    """Count-weighted mean over the ranks of ``group`` (None: every rank
+    of the run),
     in float64: each rank's values weighted by its ``nums`` (reference
     reduce_dict_corr, trn_utils.py:106-121)."""
     if _size(group) == 1:
@@ -140,7 +175,7 @@ def broadcast_object(obj: Any, src: int = 0) -> Any:
     if get_world_size() == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    dist.broadcast_object_list(box, src=src, group=world_group())
     return box[0]
 
 
@@ -149,5 +184,5 @@ def all_gather_object(obj: Any) -> List[Any]:
     if get_world_size() == 1:
         return [obj]
     out: List[Any] = [None] * get_world_size()
-    dist.all_gather_object(out, obj)
+    dist.all_gather_object(out, obj, group=world_group())
     return out

@@ -41,7 +41,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from .collectives import is_dist, set_axis_groups
+from .collectives import is_dist, set_axis_groups, set_world_group
 
 # the process group's timeout: a collective that waits longer raises
 TIMEOUT_S = 1800.0
@@ -99,6 +99,7 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
         timeout=datetime.timedelta(seconds=timeout_s),
         device_id=dev if backend == "nccl" else None)
     set_axis_groups()  # a new group: no mesh's groups yet
+    set_world_group()
     return dev
 
 
@@ -147,6 +148,36 @@ def make_mesh(cfg, device_type: str = "cpu"):
     return mesh
 
 
+def resized_shape(cfg, n: int):
+    """The mesh shape and axis names of a run resized to ``n`` ranks (the
+    JAX ``Learner._apply_resize``, learner.py:391-399): ``cfg.tpu.mesh_shape``
+    over ``n``, or a pure ``data`` mesh of ``n`` where that shape does not
+    tile ``n``."""
+    try:
+        return mesh_shape(cfg, n), tuple(cfg.tpu.mesh_axis_names)
+    except ValueError:
+        return (n,), ("data",)
+
+
+def make_survivors_mesh(shape, names, device_type: str = "cpu"):
+    """The groups of a run shrunk to ranks 0..n-1, n = prod(shape): every
+    rank of the process group calls it (each group is made over the
+    default group, the ranks that leave included, in one order), and the
+    survivors get ``(world group, mesh, axis groups)``, the others None.
+    The survivors' caller records the groups (``set_world_group``,
+    ``set_axis_groups``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
+    world = dist.new_group(list(range(n)))
+    mesh = DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(names))
+    groups = axis_groups(mesh)
+    if dist.get_rank() >= n:
+        return None
+    return world, mesh, groups
+
+
 def model_extent(mesh) -> int:
     """How many ways the ``model`` axis splits the transformer layers (1
     without one)."""
@@ -163,13 +194,15 @@ def axis_groups(mesh) -> dict:
     data x fsdp order: group rank = data coordinate) and model group; with
     no ``model`` axis of extent > 1, ``data=None`` (every rank) and no
     model group. The data groups are made here (every rank makes all of
-    them)."""
-    if model_extent(mesh) == 1:
+    them; a rank outside the mesh gets no group)."""
+    names = mesh.mesh_dim_names
+    if "model" not in names or mesh.mesh.shape[names.index("model")] == 1:
         return {"data": None, "model": None}
-    dim = mesh.mesh_dim_names.index("model")
-    ranks = mesh.mesh.movedim(dim, 0)
+    ranks = mesh.mesh.movedim(names.index("model"), 0)
     data, _ = dist.new_subgroups_by_enumeration(
         [ranks[m].flatten().tolist() for m in range(ranks.shape[0])])
+    if data is None:  # a rank outside the mesh (make_survivors_mesh)
+        return {"data": None, "model": None}
     return {"data": data, "model": mesh["model"].get_group()}
 
 

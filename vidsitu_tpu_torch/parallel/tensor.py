@@ -170,6 +170,34 @@ def shard_tp(model: nn.Module, mesh) -> Optional[Split]:
     return split
 
 
+def unshard_tp(model: nn.Module, whole: Dict[str, torch.Tensor]) -> None:
+    """Undo :func:`shard_tp` in place: each split parameter becomes its
+    whole tensor of ``whole`` (by name), each split module computes all its
+    heads again. A resize re-splits the model so on the survivors' mesh."""
+    from ..models.transformer import MultiHeadAttention
+
+    split = split_of(model)
+    if split is None:
+        return
+    for name, d in split.dims.items():
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        old = getattr(mod, attr)
+        new = whole[name].to(old.device, old.dtype).contiguous().clone()
+        setattr(mod, attr, nn.Parameter(new, requires_grad=old.requires_grad))
+        if attr == "weight":
+            if d == 0:
+                mod.out_features = new.shape[0]
+            else:
+                mod.in_features = new.shape[1]
+    for m in model.modules():
+        if getattr(m, "tp", None) is not None:
+            if isinstance(m, MultiHeadAttention):
+                m.n_heads *= split.n
+            m.tp = None
+    del model.tp_split
+
+
 def split_of(model: nn.Module) -> Optional[Split]:
     """The :class:`Split` of a model that :func:`shard_tp` split, else None."""
     return getattr(model, "tp_split", None)

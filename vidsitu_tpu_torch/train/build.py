@@ -42,6 +42,35 @@ def is_training(cfg) -> bool:
     return not (cfg.only_val or cfg.only_test or cfg.overfit_batch)
 
 
+def place_model(model: torch.nn.Module, cfg, mesh, dev: torch.device):
+    """``model`` (whole) on ``dev`` and ``mesh``: split over its ``model``
+    axis (``shard_tp``), and for training on an ``fsdp`` axis sharded
+    (``shard_model``) after a copy is taken to evaluate through. Returns
+    ``(model, eval_model)``; ``eval_model`` is ``model`` unless sharded.
+    ``build_learner`` places a new model so, and a resize the survivors'
+    whole one."""
+    from ..parallel.mesh import shard_model, shards_params
+    from ..parallel.tensor import shard_tp
+
+    model.to(dev)
+    if mesh is not None:
+        shard_tp(model, mesh)
+    sharded = shards_params(mesh) and is_training(cfg)
+    if cfg.task_type == "vb" and dev.type == "cuda":
+        # FSDP2 refuses parameters that are not contiguous
+        model.to(memory_format=torch.contiguous_format if sharded
+                 else torch.channels_last_3d)
+    # an fsdp-sharded model evaluates through a copy that is whole on the
+    # fsdp axis: the ranks' decodes stop at different steps, and a
+    # per-forward all-gather would then deadlock (the Learner copies the
+    # weights in before each validation). A model group decodes the same
+    # rows in lockstep, so the copy keeps the tensor-parallel split.
+    eval_model = copy.deepcopy(model) if sharded else model
+    if sharded:
+        shard_model(model, mesh)
+    return model, eval_model
+
+
 def build_learner(cfg, uid: str, device="cuda", weights: str = "",
                   allow_random: bool = False) -> Learner:
     """The Learner that ``main.py`` runs for ``cfg``. Training, and ``vb`` /
@@ -63,14 +92,7 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         is_dist,
         model_rank,
     )
-    from ..parallel.mesh import (
-        data_extent,
-        make_mesh,
-        mesh_shape,
-        shard_model,
-        shards_params,
-    )
-    from ..parallel.tensor import shard_tp
+    from ..parallel.mesh import data_extent, make_mesh, mesh_shape
     from .pretrained import load_pretrained_variables
 
     task = cfg.task_type
@@ -98,21 +120,7 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
         load_pretrained_variables(cfg, model)
         if weights:
             load_weights(model, cfg, weights, False)
-    model.to(dev)
-    if mesh is not None:
-        shard_tp(model, mesh)
-    sharded = shards_params(mesh) and is_training(cfg)
-    if task == "vb" and dev.type == "cuda" and not sharded:
-        # FSDP2 refuses parameters that are not contiguous
-        model.to(memory_format=torch.channels_last_3d)
-    # an fsdp-sharded model evaluates through a copy that is whole on the
-    # fsdp axis: the ranks' decodes stop at different steps, and a
-    # per-forward all-gather would then deadlock (the Learner copies the
-    # weights in before each validation). A model group decodes the same
-    # rows in lockstep, so the copy keeps the tensor-parallel split.
-    eval_model = copy.deepcopy(model) if sharded else model
-    if sharded:
-        shard_model(model, mesh)
+    model, eval_model = place_model(model, cfg, mesh, dev)
     ranks = dict(rank=rank, world_size=world, model_rank=model_rank())
     if task == "vb":
         eval_fn = EvalB(cfg, comm, eval_model, dev, split_type=(
@@ -127,4 +135,4 @@ def build_learner(cfg, uid: str, device="cuda", weights: str = "",
             **ranks)
     model.train(is_training(cfg))
     return Learner(uid=uid, cfg=cfg, model=model, data=data, eval_fn=eval_fn,
-                   device=dev, eval_model=eval_model)
+                   device=dev, eval_model=eval_model, mesh=mesh)

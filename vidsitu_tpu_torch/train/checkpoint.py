@@ -91,6 +91,9 @@ class PickleBackend:
     def wait(self):
         pass
 
+    def regroup(self, n: int):
+        """Nothing: rank 0 writes alone (see ``DcpBackend.regroup``)."""
+
 
 GENERATIONS = ("tree.g0", "tree.g1")
 LEGACY = "tree"
@@ -171,6 +174,16 @@ class DcpBackend:
         if self._group is None:
             self._group = torch.distributed.new_group(backend="gloo")
         return self._group
+
+    def regroup(self, n: int):
+        """A resize to ranks 0..n-1: every rank of the process group calls
+        it (the group is made over the default group), and the survivors'
+        later saves and loads take their own gloo group."""
+        from ..parallel.collectives import get_rank
+
+        self.wait()
+        group = torch.distributed.new_group(list(range(n)), backend="gloo")
+        self._group = group if get_rank() < n else None
 
     @staticmethod
     def _dir(path) -> Path:

@@ -47,13 +47,16 @@ divides the global batches (``load_model_dict``); a sharded model validates
 through a whole copy (``eval_model``), refreshed before each validation;
 rank 0's validation results reach every rank, so best-metric, plateau and
 save decisions agree; SIGTERM is honoured at the epoch boundary, once any
-rank has seen it (``_sync_preempt_flag``).
+rank has seen it (``_sync_preempt_flag``). ``request_resize(n)`` shrinks a
+running fit to ranks 0..n-1 at the next epoch boundary, without a restart
+(the JAX package's mid-run elasticity, learner.py:366-439).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import signal
 import sys
 import time
@@ -73,6 +76,7 @@ from ..parallel.collectives import (
     get_world_size,
     is_dist,
     synchronize,
+    world_group,
 )
 from ..utils.config import CfgProcessor
 
@@ -123,21 +127,12 @@ class Learner:
 
     def __init__(self, uid: str, cfg, model: torch.nn.Module, data, eval_fn,
                  device, loss_keys=("loss",),
-                 eval_model: Optional[torch.nn.Module] = None):
-        from ..parallel.mesh import is_sharded
-        from ..parallel.tensor import split_of
+                 eval_model: Optional[torch.nn.Module] = None, mesh=None):
         from .checkpoint import get_backend
-        from .pretrained import make_freeze_mask
 
         self.uid = uid
         self.cfg = cfg
         self.device = torch.device(device)
-        self.model = model
-        # what eval_fn runs: the model, or a whole copy of a sharded one
-        self.eval_model = model if eval_model is None else eval_model
-        self.sharded = is_sharded(model)
-        # the tensor-parallel split (parallel/tensor.py), or None
-        self.split = split_of(model)
         self.data = data
         self.eval_fn = eval_fn
         self.loss_keys = list(loss_keys)
@@ -155,21 +150,15 @@ class Learner:
         self._preempt_requested = False
         self._stale_preempt = None  # consumed preempt ckpt, deleted on save
         self.ckpt_backend = get_backend(cfg.train.ckpt_backend)
-        self.rank, self.world_size = get_rank(), get_world_size()
-        # this rank's place among the ranks that split the batch
-        self.data_rank, self.data_world = data_rank(), data_world_size()
-        self.is_main = self.rank == 0
+        self._pending_resize: Optional[int] = None
+        self._resized = False
+        self.left = False  # this rank left the run at a resize
+        self._bind(model, eval_model, mesh)
         # the dropout masks' random state, on the training device, the same
         # on every rank; the only random state of a step (the JAX
         # package's rng)
         self.dropout_gen = torch.Generator(device=self.device).manual_seed(
             int(cfg.train.seed))
-        frozen = make_freeze_mask(cfg, model)
-        # under fsdp these are the sharded (DTensor) parameters
-        params = dict(model.named_parameters())
-        self._frozen = [params[n] for n in frozen] if frozen else []
-        self._param_names = list(params)
-        self._params = list(params.values())
         self.init_log_dirs()
         self.prepare_log_file()
         if cfg.train.resume:
@@ -180,6 +169,32 @@ class Learner:
             if resume_path == str(self.preempt_file):
                 # consumed, but kept until the next save that resume reads
                 self._stale_preempt = self.preempt_file
+
+    def _bind(self, model: torch.nn.Module,
+              eval_model: Optional[torch.nn.Module], mesh):
+        """What the Learner keeps of the model, the mesh and the ranks (at
+        construction, and again on the survivors of a resize)."""
+        from ..parallel.mesh import is_sharded
+        from ..parallel.tensor import split_of
+        from .pretrained import make_freeze_mask
+
+        self.model = model
+        # what eval_fn runs: the model, or a whole copy of a sharded one
+        self.eval_model = model if eval_model is None else eval_model
+        self.mesh = mesh  # the DeviceMesh, or None
+        self.sharded = is_sharded(model)
+        # the tensor-parallel split (parallel/tensor.py), or None
+        self.split = split_of(model)
+        self.rank, self.world_size = get_rank(), get_world_size()
+        # this rank's place among the ranks that split the batch
+        self.data_rank, self.data_world = data_rank(), data_world_size()
+        self.is_main = self.rank == 0
+        frozen = make_freeze_mask(self.cfg, model)
+        # under fsdp these are the sharded (DTensor) parameters
+        params = dict(model.named_parameters())
+        self._frozen = [params[n] for n in frozen] if frozen else []
+        self._param_names = list(params)
+        self._params = list(params.values())
 
     # -- scaffolding (trn_utils.py:433-478) ----------------------------------
     def init_log_dirs(self):
@@ -222,15 +237,18 @@ class Learner:
         stashed optimizer state from ``load_model_dict(load_opt=True)`` is
         restored here, with its lr and its ``grad_accum`` cycle. Without
         one, no cycle is in flight."""
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=lr, betas=(0.9, 0.99), eps=1e-8)
-        self._lr = lr
+        self._new_optimizer(lr)
         pending, self._pending_opt = self._pending_opt, None
         if pending is not None:
             self._restore_opt(pending)
         else:
             self.optimizer.zero_grad(set_to_none=True)
             self._accum_count = 0
+
+    def _new_optimizer(self, lr: float):
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=lr, betas=(0.9, 0.99), eps=1e-8)
+        self._lr = lr
 
     def _restore_opt(self, pending: Dict):
         self._load_opt_state(pending["opt"])
@@ -333,7 +351,7 @@ class Learner:
             flag = torch.tensor([int(self._preempt_requested)],
                                 device=collective_device())
             torch.distributed.all_reduce(
-                flag, op=torch.distributed.ReduceOp.MAX)
+                flag, op=torch.distributed.ReduceOp.MAX, group=world_group())
             self._preempt_requested = bool(flag.item())
         return self._preempt_requested
 
@@ -491,6 +509,10 @@ class Learner:
                 self.update_log_file(row)
                 self.logger.info("epoch %d done in %.1fs: %s", self.num_epoch,
                                  time.time() - ep_start, row)
+                if self._pending_resize is not None and \
+                        not self._apply_resize():
+                    tracker.end_run()
+                    return  # this rank left the run
         except Exception as e:
             # every improving epoch saved at once: nothing more to save
             self.update_log_file(f"exited due to exception {e!r}")
@@ -505,6 +527,118 @@ class Learner:
         tracker.log_artifact(self.txt_log_file)
         tracker.end_run()
         self.ckpt_backend.wait()  # an async save in flight commits
+
+    # -- mid-run resize (the JAX Learner.request_resize, learner.py:366-439) -
+    def request_resize(self, n: int):
+        """Shrink the run to ranks 0..n-1 at the next epoch boundary of
+        ``fit``, after the validation and the saves, without a restart.
+        Ranks >= n leave ``fit`` there (``left`` is then True; ``main`` then
+        skips the final validation); the survivors go on with the whole
+        state: the model, Adam's moments, the BatchNorm statistics, a
+        ``grad_accum`` cycle in flight, the dropout generator and the
+        counters, re-split and re-sharded on the new mesh
+        (``cfg.tpu.mesh_shape`` over n, or a pure ``data`` mesh where that
+        shape does not tile n), with their loaders' shards and the
+        evaluator re-targeted. A step does not depend on the number of
+        ranks, so the resized run is the straight run.
+
+        A process drives one GPU and cannot take ranks it was not started
+        with: a grow (``n`` >= the run's ranks) raises here. It is the
+        checkpoint restart on more ranks (``train.resume=True``,
+        ``load_model_dict``), as the JAX docstring says for process-count
+        changes. One resize a run: the survivors' groups are made over the
+        default group, which the ranks that left are no longer in."""
+        n = int(n)
+        if not 1 <= n < self.world_size:
+            raise ValueError(
+                f"request_resize({n}) on a run of {self.world_size} rank(s): "
+                "a resize only shrinks (1 <= n < ranks); to grow, restart on "
+                "more ranks from a checkpoint (train.resume=True, "
+                "Learner.load_model_dict)")
+        if self._resized:
+            raise ValueError(
+                f"request_resize({n}): this run was resized once already; "
+                "restart from a checkpoint to resize again")
+        self._pending_resize = n
+
+    def _mesh_shape(self) -> Dict[str, int]:
+        if self.mesh is None:
+            return {"data": self.world_size}
+        return {a: int(s) for a, s in zip(self.mesh.mesh_dim_names,
+                                          self.mesh.mesh.shape)}
+
+    def _apply_resize(self) -> bool:
+        """The resize ``request_resize`` asked for, on every rank, as an
+        in-memory save and resume: the checks (the same on every rank, so
+        all raise together, before any state changes), the whole state
+        gathered while every rank is here, the survivors' groups (every
+        rank makes them), then on the survivors a whole model placed on the
+        new mesh as ``build_learner`` places one, the state loaded into it
+        as ``load_model_dict`` loads one, the optimizer, the loaders and the
+        evaluator. Returns False on a rank that leaves."""
+        from ..data.loader import DataWrap, get_dataloader
+        from ..parallel import collectives as C
+        from ..parallel.mesh import make_survivors_mesh, resized_shape
+        from ..parallel.tensor import unshard_tp
+        from .build import place_model
+
+        n, self._pending_resize = self._pending_resize, None
+        shape, names = resized_shape(self.cfg, n)
+        new = dict(zip(names, shape))
+        extent = math.prod(s for a, s in new.items() if a in ("data", "fsdp"))
+        for key, what in (("bs", "train batch"), ("bsv", "eval batch")):
+            if int(self.cfg.train[key]) % extent:
+                raise ValueError(
+                    f"resize to {n} ranks ({new}): {what} train.{key}="
+                    f"{self.cfg.train[key]} is not divisible by the resized "
+                    f"mesh's {extent}-way data-parallel share; pick a "
+                    f"compatible n or train.{key}")
+        old = self._mesh_shape()
+        self.ckpt_backend.wait()
+        model_state = self._model_state(full=True)
+        opt_state = self._opt_state(full=True)
+        accum_count, accum = self._accum_count, self._accum_state(full=True)
+        self.ckpt_backend.regroup(n)
+        made = make_survivors_mesh(shape, names, self.device.type)
+        if made is None:
+            C.leave()
+            self.left = True
+            self.logger.info("rank %d left the run at the resize to %d "
+                             "ranks (epoch %d)", self.rank, n, self.num_epoch)
+            return False
+        world, mesh, groups = made
+        C.set_world_group(world)
+        C.set_axis_groups(**groups)
+        # a whole model: the evaluation copy under fsdp (whole on the fsdp
+        # axis), else the model itself; its split undone
+        base = self.eval_model
+        unshard_tp(base, model_state)
+        base.load_state_dict(model_state, strict=True)
+        model, eval_model = place_model(base, self.cfg, mesh, self.device)
+        model.train()
+        self._bind(model, eval_model, mesh)
+        self._new_optimizer(self._lr)
+        self._restore_opt({"opt": opt_state, "lr": self._lr,
+                           "accum_count": accum_count, "accum": accum})
+        if self.data is not None:
+            def shard(dl, is_train):
+                return None if dl is None else get_dataloader(
+                    self.cfg, dl.dataset, is_train, self.data_world,
+                    self.data_rank)
+
+            self.data = DataWrap(path=self.data.path,
+                                 train_dl=shard(self.data.train_dl, True),
+                                 valid_dl=shard(self.data.valid_dl, False),
+                                 test_dl=shard(self.data.test_dl, False))
+        rebind = getattr(self.eval_fn, "rebind", None)
+        if callable(rebind):
+            rebind(self.eval_model, self.data_rank, self.data_world,
+                   C.model_rank())
+        self._resized = True
+        self.logger.info("elastic resize: mesh %s -> %s", old, new)
+        self.update_log_file(
+            f"elastic resize at epoch {self.num_epoch}: {old} -> {new}")
+        return True
 
     def overfit_batch(self, epochs: int, lr: float) -> List[float]:
         """Single-batch convergence sanity (trn_utils.py:915-939)."""
