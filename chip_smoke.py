@@ -252,7 +252,29 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    tensor-parallel step on ``data`` x ``model`` [1, 2]) against one
    process at the JAX entry's tiny sizes and limits: the three tasks'
    steps, the TP step, the segmented ancestry beam decode, the extractor
-   and an elastic 2 -> 1 resume; its 8 lines and its receipt printed.
+   and an elastic 2 -> 1 resume; its 8 lines and its receipt printed;
+35. the dtype surface, run after phase 19: (a) every float16 attention
+   entry that takes the input (``nl_attn_fwd_wgmma`` / ``nl_attn_bwd_wgmma``
+   routed at d 64-512, ``nl_attn_fwd`` / ``nl_attn_bwd`` forced there and
+   routed at d = 24) against the plain and the tiled plain versions at
+   phase 2's shapes and d = 24, both kinds, output gradients of scale 1
+   and 2^-14 (the dS scale at work): outputs within 2e-2 of their scale,
+   gradients within 5e-2; then timed at s3 / s4 (forward B = 32, backward
+   B = 80) against the forced entries, the plain version and the
+   library's float16 fused attention and its backward; (b)
+   ``train.dtype=float16`` through ``extract_features`` on phase 3's split
+   (10 float16 ``nl_attn_fwd_wgmma`` launches), the 32-clip features with
+   the kernels against the plain attention within 2e-2 of their scale (5
+   launches, none from the plain path), and one 80-clip
+   ``Learner.train_step`` (5 + 5 float16 launches); (c) one I3D-NL R50
+   update at 80 clips with ``train.dtype=train.param_dtype=bfloat16``
+   through ``Learner.train_step`` (Adam in the parameters' dtype): the loss
+   within 1e-2 of phase 18's float32-parameter loss, 5 + 5 bf16 launches,
+   bf16 parameters and moments, float32 statistics, the update's ms and
+   peak memory beside phase 18's; (d) ``sfpret_txe_txd_vbarg`` at d 1024
+   with bf16 parameters: one train step of 16 videos, then a beam-5 decode
+   of one batch on the reorder route, one ``beam_gather_rows`` launch a
+   step, every reorder bitwise equal to ``index_select``.
 
 Phases 1-32 run as before, at the same depth and repeats. A child that
 fails, a launch past DP_TIMEOUT_S or a disagreement fails the smoke.
@@ -1615,7 +1637,8 @@ def phase_train_step(dev):
     del model, opt, batch
     torch.cuda.empty_cache()
     return {"videos": step_videos, "accum": accum, "ms": ms,
-            "plain_ms": plain_ms, "tflops": flops / ms / 1e9,
+            "loss": loss_k.item(), "plain_ms": plain_ms,
+            "tflops": flops / ms / 1e9,
             "peak_gib": peak / 2**30, "grad_rel_err": worst,
             "attn_grad_rel_err": worst_attn,
             "device_busy": dev_ms / wall / 1e3, "attn_share": attn_ms / dev_ms}
@@ -3410,6 +3433,367 @@ def phase_dryrun(root):
     return {"wall_s": wall, "lines": lines, "receipt": run}
 
 
+# The dtype surface: phase 35
+F16_CHECKS = ATTN_CHECKS + (("d24", 8, (70, 33, 24)),)
+F16_OUT_TOL, F16_GRAD_TOL = 2e-2, 5e-2  # of the output's / gradient's scale
+F16_SMALL_DO = 2.0 ** -14  # a training step's output gradients: small dS
+PARAM_LOSS_RTOL = 1e-2  # bf16 parameters against float32 ones, one update
+PARAM_VIDEOS = 16  # phase 18's update: 80 clips
+PARAM_TIMED = 3  # timed updates of phase 35 (c)
+
+
+def f16_kernel_checks(dev):
+    """Phase 35 (a), checks: every float16 entry that takes the input (the
+    routed one, and the WMMA entry forced where it is another) against the
+    plain version and the tiled plain version, forward and backward, both
+    kinds, at phase 2's shapes and d = 24, with output gradients of scale 1
+    and F16_SMALL_DO. Returns the worst absolute error of each entry
+    against the plain version, and of each backward entry the worst
+    relative to each gradient's scale."""
+    from vidsitu_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(35)
+    worst = {e: 0.0 for e in A.ENTRIES + A.BWD_ENTRIES}
+    worst_rel = {e: 0.0 for e in A.BWD_ENTRIES}
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() / max(
+            b.float().abs().max().item(), 1e-30)
+
+    for name, b, (sq, sk, d) in F16_CHECKS:
+        q, k, v = seeded_qkv(rng, b, sq, sk, d, torch.float16, dev)
+        scale = d ** -0.5
+        fwd = dict.fromkeys((A.kernel_entry(torch.float16, d), V1_ENTRY))
+        bwd = dict.fromkeys((A.bwd_kernel_entry(torch.float16, d),
+                             BWD_V1_ENTRY))
+        for kind in ("softmax", "dot_product"):
+            ref = A.attention_reference(q, k, v, kind, scale)
+            til = A.attention_tiled_reference(q, k, v, kind, scale,
+                                              A.wgmma_block_k(d))
+            errs = []
+            for entry in fwd:
+                out, lse = A.fused_attention(q, k, v, kind, scale,
+                                             entry=entry, with_lse=True)
+                torch.cuda.synchronize()
+                e = max(rel(out, ref), rel(out, til) if entry != V1_ENTRY
+                        else 0.0)
+                assert out.dtype == torch.float16 and e <= F16_OUT_TOL, (
+                    f"[35 float16] {entry} {name} {kind}: {e:.3e}")
+                worst[entry] = max(worst[entry], (
+                    out.float() - ref.float()).abs().max().item())
+                errs.append(f"{entry} {e:.2e}")
+            for do_scale in (1.0, F16_SMALL_DO):
+                do = (seeded_qkv(rng, b, sq, sq, d, torch.float32, dev)[0]
+                      * do_scale).half()
+                want = A.attention_backward_reference(q, k, v, out, do, kind,
+                                                      scale)
+                for entry in bwd:
+                    got = A.fused_attention_backward(
+                        q, k, v, out, do, lse, kind, scale, entry=entry)
+                    want_t = A.attention_backward_tiled_reference(
+                        q, k, v, out, do, lse, kind, scale, entry=entry)
+                    torch.cuda.synchronize()
+                    e = max(max(rel(g, w), rel(g, t))
+                            for g, w, t in zip(got, want, want_t))
+                    assert all(g.dtype == torch.float16 for g in got) and (
+                        e <= F16_GRAD_TOL), (
+                        f"[35 float16] {entry} {name} {kind} dO x "
+                        f"{do_scale:g}: {e:.3e}")
+                    worst_rel[entry] = max(worst_rel[entry], e)
+                    worst[entry] = max(worst[entry], *(
+                        (g.float() - w.float()).abs().max().item()
+                        for g, w in zip(got, want)))
+                    errs.append(f"{entry} dO x {do_scale:g} {e:.2e}")
+        log(f"[35 float16] {name} B={b} Sq={sq} Sk={sk} d={d}: error / scale "
+            f"vs plain and tiled plain: {'; '.join(errs)} (limits "
+            f"{F16_OUT_TOL:g} / {F16_GRAD_TOL:g}) ok")
+    return worst, worst_rel
+
+
+def f16_kernel_times(dev):
+    """Phase 35 (a), times: the float16 entries at the s3 / s4 shapes (the
+    forward at B = 32, the backward at B = 80), in turns with the WMMA entry
+    forced, the plain version and the library's fused attention in
+    float16 (its backward for the backward), with the bound of the work."""
+    from vidsitu_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(135)
+    out_t = {}
+    for name, (sq, sk, d) in (("s3", S3), ("s4", S4)):
+        scale = d ** -0.5
+        q, k, v = seeded_qkv(rng, 32, sq, sk, d, torch.float16, dev)
+        q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
+        ms, v1_ms, plain_ms, lib_ms = medians_in_turns([
+            lambda: A.fused_attention(q, k, v, "softmax", scale),
+            lambda: A.fused_attention(q, k, v, "softmax", scale,
+                                      entry=V1_ENTRY),
+            lambda: A.attention_reference(q, k, v, "softmax", scale),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, scale=scale)], 20)
+        moved = 2 * (2 * q.numel() + k.numel() + v.numel())
+        fwd = dict(zip(("bound_ms", "bound_by"),
+                       bound(moved, 4 * 32 * sq * sk * d)))
+        fwd.update(ms=ms, v1_ms=v1_ms, plain_ms=plain_ms, library_ms=lib_ms)
+        del q, k, v, q4, k4, v4
+        b = 80
+        q, k, v = seeded_qkv(rng, b, sq, sk, d, torch.float16, dev)
+        out, lse = A.fused_attention(q, k, v, "softmax", scale, with_lse=True)
+        do = torch.randn_like(out)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        plain_out = A.attention_reference(*leaves, "softmax", scale)
+        l4 = [t.detach().unsqueeze(1).requires_grad_() for t in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *l4, scale=scale)
+        bms, bv1_ms, bplain_ms, blib_ms = medians_in_turns([
+            lambda: A.fused_attention_backward(q, k, v, out, do, lse,
+                                               "softmax", scale),
+            lambda: A.fused_attention_backward(q, k, v, out, do, lse,
+                                               "softmax", scale,
+                                               entry=BWD_V1_ENTRY),
+            backward_ms(plain_out, leaves, do),
+            backward_ms(lib_out, l4, do.unsqueeze(1))], 5)
+        # q, k, v, o, dO read, dq, dk, dv written; the rows' lse read
+        moved = 2 * (4 * q.numel() + 4 * k.numel()) + lse.numel() * 4
+        bwd = dict(zip(("bound_ms", "bound_by"),
+                       bound(moved, 5 * 2 * b * sq * sk * d)))
+        bwd.update(ms=bms, v1_ms=bv1_ms, plain_ms=bplain_ms,
+                   library_ms=blib_ms)
+        out_t[name] = {"fwd": fwd, "bwd": bwd}
+        log(f"[35 float16] time {name} float16 softmax: forward B=32 "
+            f"{A.kernel_entry(torch.float16, d)} {ms:.4f} ms, {V1_ENTRY} "
+            f"{v1_ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_"
+            f"attention {lib_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms by "
+            f"{fwd['bound_by']}; backward B={b} "
+            f"{A.bwd_kernel_entry(torch.float16, d)} {bms:.4f} ms, "
+            f"{BWD_V1_ENTRY} {bv1_ms:.4f} ms, autograd of the plain attention "
+            f"{bplain_ms:.4f} ms, scaled_dot_product_attention backward "
+            f"{blib_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
+            f"{bwd['bound_by']}")
+        del q, k, v, out, lse, do, leaves, plain_out, l4, lib_out
+        torch.cuda.empty_cache()
+    return out_t
+
+
+def f16_main_path(paths, root, state_dict, p18, dev):
+    """Phase 35 (b): ``train.dtype=float16`` on the I3D-NL R50 through the
+    entry points: ``extract_features`` on phase 3's split (2 dispatches of
+    32 clips, 5 float16 forward launches each), the 32-clip features with
+    the kernels against the plain attention, and one 80-clip update through
+    ``Learner.train_step`` on phase 18's weights and batch (5 + 5 float16
+    launches). Counts set to 0 just before each, read just after."""
+    from vidsitu_tpu_torch.bench import make_vb_train
+    from vidsitu_tpu_torch.convert.from_flax import (
+        flax_to_state_dict,
+        seeded_variables,
+    )
+    from vidsitu_tpu_torch.data.comm import build_comm
+    from vidsitu_tpu_torch.data.loader import fold_frame_events, stack_collate
+    from vidsitu_tpu_torch.extract import FramesOnlyDS, extract_features
+    from vidsitu_tpu_torch.models.vb_models import build_feat_extractor
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.train.learner import Learner
+
+    cfg = smoke_cfg(paths, root, "i3d_r50_nl_8x8")
+    cfg.defrost()
+    cfg.train.dtype = "float16"
+    comm = build_comm(cfg)
+    A.reset_launches()
+    counts = extract_features(
+        cfg, comm, state_dict=state_dict, splits=["valid"],
+        out_dir=root / "feats16", batch_size=4, num_threads=8,
+        clip_batch=32, device="cuda")
+    extract = dict(A.LAUNCHES_BY_DTYPE["float16"])
+    files = sorted((root / "feats16").glob("*_feats.npy"))
+    arrs = [np.load(f) for f in files]
+    assert counts == {"valid": 8} and len(files) == 8, counts
+    assert all(a.shape == (5, 2048) and np.isfinite(a).all() for a in arrs)
+    assert extract["nl_attn_fwd_wgmma"] == A.LAUNCHES == 2 * NL_BLOCKS, (
+        extract, A.LAUNCHES_BY_DTYPE)
+
+    ds = FramesOnlyDS(cfg, comm, "valid")
+    batch = fold_frame_events(stack_collate([ds[i] for i in range(7)]))
+    frames = torch.from_numpy(batch["frms_ev_fast_tensor"][:32]).to(dev)
+    model = build_feat_extractor(cfg)
+    model.load_state_dict(state_dict, strict=True)
+    model.to(device=dev, memory_format=torch.channels_last_3d)
+    blocks = nl_blocks(model).values()
+
+    def run(attn):
+        for m in blocks:
+            m.attention = attn
+        with torch.inference_mode():
+            return model.clip_features({"frms_ev_fast_tensor": frames})
+
+    A.reset_launches()
+    feats_k = run(A.nonlocal_attention).float()
+    fwd_launches = dict(A.LAUNCHES_BY_DTYPE["float16"])
+    plain_before = A.LAUNCHES
+    feats_p = run(A.attention_reference).float()
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == plain_before, "the plain path launched a kernel"
+    feat_scale = feats_p.abs().max().item()
+    feat_err = (feats_k - feats_p).abs().max().item() / feat_scale
+    ms_k, ms_p = medians_in_turns([lambda: run(A.nonlocal_attention),
+                                   lambda: run(A.attention_reference)], 5)
+    ok = (bool(torch.isfinite(feats_k).all()) and feat_err <= FEATURE_RTOL
+          and fwd_launches["nl_attn_fwd_wgmma"] == NL_BLOCKS)
+    log(f"[35 float16] extract_features at train.dtype=float16: {counts}, "
+        f"launches {extract}; 32-clip features kernel vs plain "
+        f"{feat_err:.3e} of the feature scale {feat_scale:.3e} (limit "
+        f"{FEATURE_RTOL:g}), {NL_BLOCKS} launches a forward {fwd_launches}; "
+        f"forward {ms_k:.2f} ms with the kernels, {ms_p:.2f} ms plain "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok
+    del model, frames, feats_k, feats_p
+    torch.cuda.empty_cache()
+
+    model, _, vbatch, vcfg = make_vb_train(
+        "i3d_r50_nl_8x8", PARAM_VIDEOS, dev,
+        overrides={"train.dtype": "float16",
+                   "misc.tmp_path": str(root / "tmp35")})
+    model.load_state_dict(flax_to_state_dict(seeded_variables(model, 0)),
+                          strict=True)
+    learner = Learner("chip_smoke_f16", vcfg, model, None, None, dev)
+    learner.prepare_optimizer(1e-4)
+    A.reset_launches()
+    loss = learner.train_step(vbatch).item()
+    torch.cuda.synchronize()
+    step_launches = dict(A.LAUNCHES_BY_DTYPE["float16"])
+    want = {"nl_attn_fwd_wgmma": NL_BLOCKS, "nl_attn_bwd_wgmma": NL_BLOCKS}
+    ok = (np.isfinite(loss) and A.LAUNCHES == 2 * NL_BLOCKS
+          and all(step_launches[e] == n for e, n in want.items()))
+    log(f"[35 float16] Learner.train_step at train.dtype=float16, "
+        f"{5 * PARAM_VIDEOS} clips: loss {loss:.5f} (bf16, phase 18: "
+        f"{p18['loss']:.5f}), launches {step_launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    assert ok
+    del model, learner, vbatch
+    torch.cuda.empty_cache()
+    return {"extract_launches": extract, "forward_launches": fwd_launches,
+            "step_launches": step_launches, "feature_rel_err": feat_err,
+            "forward_ms": ms_k, "forward_plain_ms": ms_p, "step_loss": loss}
+
+
+def bf16_param_update(root, p18, dev):
+    """Phase 35 (c): one I3D-NL R50 update at 80 clips with
+    ``train.dtype=train.param_dtype=bfloat16`` through ``Learner.train_step``
+    (Adam in optax's bf16 arithmetic) on phase 18's weights and batch: the
+    loss against phase 18's float32-parameter loss, the bf16 kernel launches
+    (5 + 5), the update's ms and peak memory against phase 18's, the
+    parameters, Adam's moments and the statistics' dtypes."""
+    from vidsitu_tpu_torch.bench import make_vb_train
+    from vidsitu_tpu_torch.convert.from_flax import (
+        flax_to_state_dict,
+        seeded_variables,
+    )
+    from vidsitu_tpu_torch.ops import attention as A
+    from vidsitu_tpu_torch.train.adam import HalfAdam
+    from vidsitu_tpu_torch.train.learner import Learner
+
+    model, _, batch, cfg = make_vb_train(
+        "i3d_r50_nl_8x8", PARAM_VIDEOS, dev,
+        overrides={"train.dtype": "bfloat16",
+                   "train.param_dtype": "bfloat16",
+                   "misc.tmp_path": str(root / "tmp35")})
+    model.load_state_dict(flax_to_state_dict(seeded_variables(model, 0)),
+                          strict=True)
+    learner = Learner("chip_smoke_bf16_params", cfg, model, None, None, dev)
+    learner.prepare_optimizer(1e-4)
+    assert isinstance(learner.optimizer, HalfAdam)
+    torch.cuda.reset_peak_memory_stats(dev)
+    A.reset_launches()
+    loss = learner.train_step(batch).item()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = dict(A.LAUNCHES_BY_DTYPE["bfloat16"])
+    total = A.LAUNCHES
+    dtypes = {str(v.dtype).removeprefix("torch.")
+              for n, v in model.state_dict().items()
+              if v.is_floating_point() and "running" not in n}
+    stats = {str(v.dtype).removeprefix("torch.")
+             for n, v in model.state_dict().items() if "running" in n}
+    moments = {str(st["exp_avg"].dtype).removeprefix("torch.")
+               for st in learner.optimizer.state.values()}
+    ms = float(np.median(cuda_ms(lambda: learner.train_step(batch),
+                                 PARAM_TIMED)))
+    rel = abs(loss - p18["loss"]) / abs(p18["loss"])
+    want = {"nl_attn_fwd_wgmma": NL_BLOCKS, "nl_attn_bwd_wgmma": NL_BLOCKS}
+    ok = (np.isfinite(loss) and rel <= PARAM_LOSS_RTOL
+          and total == 2 * NL_BLOCKS
+          and all(launches[e] == n for e, n in want.items())
+          and dtypes == moments == {"bfloat16"} and stats == {"float32"})
+    log(f"[35 bf16 params] i3d_r50_nl_8x8 update, {5 * PARAM_VIDEOS} clips, "
+        f"bf16 parameters and Adam: loss {loss:.5f} vs float32 parameters "
+        f"{p18['loss']:.5f} (phase 18; rel {rel:.2e}, limit "
+        f"{PARAM_LOSS_RTOL:g}); launches {launches}; {ms:.1f} ms an update "
+        f"(phase 18: {p18['ms']:.1f}), peak {peak:.2f} GiB (phase 18: "
+        f"{p18['peak_gib']:.2f}); parameters {dtypes}, moments {moments}, "
+        f"statistics {stats} {'ok' if ok else 'FAIL'}")
+    assert ok
+    del model, learner, batch
+    torch.cuda.empty_cache()
+    return {"loss": loss, "loss_f32_params": p18["loss"], "loss_rel": rel,
+            "launches": launches, "ms": ms, "peak_gib": peak}
+
+
+def bf16_param_srl(dev):
+    """Phase 35 (d): ``sfpret_txe_txd_vbarg`` at d 1024 with bf16 parameters
+    and Adam: one ``Learner.train_step`` of 16 videos, then a beam-5 decode
+    of one eval batch on the reorder route, every reorder through the
+    row-gather kernel held bitwise against ``index_select``; launches ==
+    decode steps (count set to 0 just before the decode)."""
+    from vidsitu_tpu_torch.bench import REAL_TX, make_lang_train
+    from vidsitu_tpu_torch.data import build_comm
+    from vidsitu_tpu_torch.ops import beam_gather as B
+    from vidsitu_tpu_torch.train.adam import HalfAdam
+    from vidsitu_tpu_torch.train.learner import Learner
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p35_") as tmp:
+        model, _, batch, cfg = make_lang_train(
+            "vb_arg", "sfpret_txe_txd_vbarg", LANG_BS["vb_arg"], dev,
+            Path(tmp), REAL_TX, {"train.dtype": "bfloat16",
+                                 "train.param_dtype": "bfloat16"})
+        learner = Learner("chip_smoke_srl_bf16", cfg, model, None, None, dev)
+        learner.prepare_optimizer(1e-4)
+        assert isinstance(learner.optimizer, HalfAdam)
+        loss = learner.train_step(batch).item()
+        dtypes = {p.dtype for p in model.parameters()}
+        model.eval()
+        comm = build_comm(cfg)
+        gen = generator_for(model, cfg, comm)
+        eval_batch = device_batch(cfg, dev)
+        B.LAUNCHES = 0
+        checked = {}
+        with checked_reorders(checked):
+            out, wall = timed_search(gen, eval_batch)
+        launches = B.LAUNCHES
+    ok = (np.isfinite(loss) and dtypes == {torch.bfloat16}
+          and launches == out.steps == checked["reorders"] > 0
+          and checked["max_abs_err"] == 0.0)
+    log(f"[35 bf16 params] sfpret_txe_txd_vbarg d 1024, bf16 parameters: "
+        f"train step loss {loss:.5f}; beam-5 decode on the reorder route "
+        f"{out.steps} steps in {wall:.3f} s, row-gather launches {launches}, "
+        f"{checked['reorders']} reorders bitwise equal to index_select "
+        f"(max diff {checked['max_abs_err']:g}) {'ok' if ok else 'FAIL'}")
+    assert ok
+    return {"loss": loss, "launches": launches, "steps": out.steps}
+
+
+def phase_dtypes(paths, root, state_dict, p18, dev):
+    """Phase 35: the dtype surface: (a) the float16 kernels, (b)
+    train.dtype=float16 through extraction and a train step, (c) the I3D-NL
+    update with bf16 parameters, (d) the SRL model with bf16 parameters."""
+    t0 = time.perf_counter()
+    worst, worst_rel = f16_kernel_checks(dev)
+    times = f16_kernel_times(dev)
+    main = f16_main_path(paths, root, state_dict, p18, dev)
+    update = bf16_param_update(root, p18, dev)
+    srl = bf16_param_srl(dev)
+    log(f"[35 dtypes] done in {time.perf_counter() - t0:.1f} s")
+    return {"worst": worst, "worst_rel": worst_rel, "times": times,
+            "main": main, "update": update, "srl": srl}
+
+
 @contextlib.contextmanager
 def deterministic_algorithms():
     """PyTorch's deterministic algorithms (cuDNN's among them, and the
@@ -3528,6 +3912,8 @@ def main() -> int:
     vb_root, vb_paths = root, paths
     step_res = phase_train_step(dev)
     bench_train = phase_bench_train(dev)
+    # the dtype surface: each run's counts set to 0 just before it
+    dtypes = phase_dtypes(main_paths, main_root, state_dict, step_res, dev)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lang_") as tmp:
         root = Path(tmp)
@@ -3673,7 +4059,8 @@ def main() -> int:
                    max_abs_err_dp={k: v[1] for k, v in
                                    dp["beam_gather_rows"].items()},
                    launches_tp=tp["launches"],
-                   max_abs_err_tp=tp["max_abs_err"], tensor_parallel=tp),
+                   max_abs_err_tp=tp["max_abs_err"], tensor_parallel=tp,
+                   launches_bf16_params=dtypes["srl"]["launches"]),
         *(kernel_row(
             entry, "fused_bottleneck.cu", replaces, slice_launches[entry],
             fused_err[entry], fb256[key], fused_plain_ms, *fb_bound,
@@ -3733,6 +4120,31 @@ def main() -> int:
                        n for _, n in fsdp_orbax["launches"].values()]},
                    launches_resize=[[n for _, n in r]
                                     for r in resize["launches"]]),
+        *(kernel_row(
+            f"{entry} (float16)", "nonlocal_attn.cu", replaces, n_launches,
+            dtypes["worst"][entry], t["ms"], t["plain_ms"], t["bound_ms"],
+            t["bound_by"], t["library_ms"], ms_v1=t["v1_ms"],
+            max_err_v1=dtypes["worst"][v1], ms_s4=t4["ms"],
+            plain_ms_s4=t4["plain_ms"], bound_ms_s4=t4["bound_ms"],
+            library_ms_s4=t4["library_ms"], ms_v1_s4=t4["v1_ms"], **more)
+          for entry, v1, replaces, n_launches, t, t4, more in (
+              ("nl_attn_fwd_wgmma", V1_ENTRY,
+               "vidsitu_tpu/ops/attention.py:61",
+               dtypes["main"]["extract_launches"]["nl_attn_fwd_wgmma"],
+               dtypes["times"]["s3"]["fwd"], dtypes["times"]["s4"]["fwd"],
+               dict(launches_forward=dtypes["main"]["forward_launches"],
+                    launches_train_step=dtypes["main"]["step_launches"],
+                    feature_rel_err=dtypes["main"]["feature_rel_err"],
+                    forward_ms=dtypes["main"]["forward_ms"],
+                    forward_plain_ms=dtypes["main"]["forward_plain_ms"])),
+              ("nl_attn_bwd_wgmma", BWD_V1_ENTRY, BWD_TPU,
+               dtypes["main"]["step_launches"]["nl_attn_bwd_wgmma"],
+               dtypes["times"]["s3"]["bwd"], dtypes["times"]["s4"]["bwd"],
+               dict(max_rel_err=dtypes["worst_rel"]["nl_attn_bwd_wgmma"],
+                    max_rel_err_v1=dtypes["worst_rel"][BWD_V1_ENTRY],
+                    train_step_loss=dtypes["main"]["step_loss"],
+                    bf16_param_update=dtypes["update"],
+                    bf16_param_srl=dtypes["srl"])))),
         kernel_row("staged_copy", "copy_probe.cu", "benchmarks/gates.py:86",
                    slice_launches["staged_copy"], 0.0, copy_ms["staged"],
                    copy_ms["clone"], *copy_bound, copy_ms["clone"]),

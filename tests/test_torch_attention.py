@@ -3,7 +3,8 @@ package's: the plain PyTorch version against ``_einsum_attention`` and
 against the Pallas kernel in interpret mode, on numpy-seeded inputs.
 
 Tolerances are the JAX package's own (tests/test_pallas_attention.py):
-atol 2e-4 in float32, 5e-2 for bfloat16 inputs compared in float32. The
+atol 2e-4 in float32, 5e-2 for bfloat16 inputs compared in float32; float16
+inputs (three more bits than bfloat16) are held at 2e-2. The
 CUDA kernels themselves run only on a GPU: their tests here skip without one,
 and chip_smoke.py holds both entries against the plain version at the
 backbone's shapes. tests/test_torch_attention_tiled.py holds the wgmma
@@ -20,8 +21,9 @@ from vidsitu_tpu_torch.ops import attention as port
 
 torch.set_num_threads(1)
 
-ATOL = {"float32": 2e-4, "bfloat16": 5e-2}
-TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ATOL = {"float32": 2e-4, "bfloat16": 5e-2, "float16": 2e-2}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}
 
 
 def _inputs(seed, b, sq, sk, d):
@@ -46,7 +48,7 @@ SHAPES = [(2, 640, 640, 128), (1, 200, 256, 128), (1, 128, 200, 128),
           (1, 256, 256, 128), (2, 100, 196, 64), (1, 64, 200, 32)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("kind", ["softmax", "dot_product"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_reference_matches_einsum(shape, kind, dtype):
@@ -103,7 +105,9 @@ def cuda_device():
 GPU_CASES = (
     [("nl_attn_fwd_wgmma", "bfloat16", d) for d in (64, 128, 256, 512)]
     + [("nl_attn_fwd", "bfloat16", d) for d in (24, 64, 128, 256, 512)]
-    + [("nl_attn_fwd", "float32", d) for d in (24, 64, 128, 256, 512)])
+    + [("nl_attn_fwd", "float32", d) for d in (24, 64, 128, 256, 512)]
+    + [("nl_attn_fwd_wgmma", "float16", d) for d in (64, 128, 256, 512)]
+    + [("nl_attn_fwd", "float16", d) for d in (24, 64, 128, 256, 512)])
 
 
 @pytest.mark.cuda
@@ -115,7 +119,7 @@ def test_kernel_matches_reference_on_gpu(cuda_device, entry, dtype, d, kind, b):
     sq, sk = 70, 130
     arrs = _inputs(3, b, sq, sk, d)
     if kind == "dot_product":
-        # keeps one bf16 step of the largest output under the tolerance
+        # keeps one 16-bit step of the largest output under the tolerance
         arrs[0] *= np.float32(0.25)
     q, k, v = (torch.from_numpy(a).to(cuda_device, TORCH_DT[dtype])
                for a in arrs)
@@ -142,8 +146,33 @@ def test_routing_and_forced_entry_on_gpu(cuda_device):
     torch.cuda.synchronize()
     assert port.LAUNCHES_BY_ENTRY == {"nl_attn_fwd_wgmma": 1, "nl_attn_fwd": 2,
                                       **dict.fromkeys(port.BWD_ENTRIES, 0)}
+    assert port.LAUNCHES_BY_DTYPE["bfloat16"]["nl_attn_fwd"] == 1
     for dtype, d in ((torch.float32, 256), (torch.bfloat16, 24)):
         q = torch.zeros(2, 40, d, device=cuda_device, dtype=dtype)
         with pytest.raises(ValueError, match="nl_attn_fwd_wgmma takes"):
             port.fused_attention(q, q, q, "softmax", entry="nl_attn_fwd_wgmma")
     assert port.LAUNCHES == 3
+
+
+@pytest.mark.cuda
+def test_float16_routing_on_gpu(cuda_device):
+    """float16 takes the wgmma entry at the four widths and the WMMA entry
+    at the others, counted under its dtype."""
+    port.reset_launches()
+    for d in (64, 256, 24):
+        q = torch.zeros(2, 40, d, device=cuda_device, dtype=torch.float16)
+        port.fused_attention(q, q, q, "softmax")
+    torch.cuda.synchronize()
+    assert port.LAUNCHES_BY_DTYPE["float16"] == {
+        "nl_attn_fwd_wgmma": 2, "nl_attn_fwd": 1,
+        **dict.fromkeys(port.BWD_ENTRIES, 0)}
+    assert port.LAUNCHES == 3
+
+
+def test_launch_counts_by_dtype_reset_together():
+    port.LAUNCHES_BY_DTYPE["float16"]["nl_attn_fwd"] = 3
+    port.LAUNCHES_BY_ENTRY["nl_attn_fwd"] = 3
+    port.reset_launches()
+    assert not any(any(c.values()) for c in port.LAUNCHES_BY_DTYPE.values())
+    assert set(port.LAUNCHES_BY_DTYPE) == {"float32", "bfloat16", "float16"}
+    assert not any(port.LAUNCHES_BY_ENTRY.values())

@@ -9,7 +9,10 @@ statistics of ``attention_tiled_reference``, and ``NonLocalAttnFn`` with
 those tiled plain versions swapped in for the kernels (so that its wiring,
 saved tensors, scale, casts and non-contiguous upstream gradients run here).
 Both kinds, ragged Sq / Sk. Tolerances are the JAX package's: atol 2e-4 in
-float32 and 5e-2 for bfloat16 inputs, relative to each gradient's scale.
+float32 and 5e-2 for bfloat16 inputs, relative to each gradient's scale;
+2e-2 for float16 inputs, whose small output gradients (``SMALL_DO``, as a
+training step's) also run through the kernels' dS scale
+(``ds_scale``), without which dS would round to zero in float16.
 ``gradcheck`` in float64. The ``cuda`` cases compare the kernel with the
 plain versions and skip without a GPU; chip_smoke.py phase 16 runs them at
 the backbone's shapes.
@@ -28,17 +31,25 @@ from vidsitu_tpu_torch.ops import attention as port
 
 torch.set_num_threads(1)
 
-TOL = {"float32": 2e-4, "bfloat16": 5e-2}
-TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-4, "bfloat16": 5e-2, "float16": 2e-2}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}
+DTYPES = ("float32", "bfloat16", "float16")
+# the output gradients' scale of the float16 cases: dS then lies below
+# float16's smallest normal, 2^-14
+SMALL_DO = 2.0 ** -14
 # (B, Sq, Sk, d): ragged against every tile of both passes
 SHAPES = [(2, 70, 33, 64), (1, 45, 130, 128), (2, 37, 19, 256)]
 KINDS = ("softmax", "dot_product")
 
 
-def _inputs(seed, b, sq, sk, d):
+def _inputs(seed, b, sq, sk, d, dtype="float32"):
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((b, s, d)).astype(np.float32)
+    arrs = [rng.standard_normal((b, s, d)).astype(np.float32)
             for s in (sq, sk, sk, sq)]  # q, k, v, dO
+    if dtype == "float16":
+        arrs[3] *= np.float32(SMALL_DO)
+    return arrs
 
 
 @pytest.fixture(scope="module")
@@ -46,9 +57,9 @@ def jax_grads():
     """jax.grad of the JAX package's attention for every case, built once."""
     out = {}
     for i, (b, sq, sk, d) in enumerate(SHAPES):
-        arrs = _inputs(i, b, sq, sk, d)
         for kind in KINDS:
-            for dtype in ("float32", "bfloat16"):
+            for dtype in DTYPES:
+                arrs = _inputs(i, b, sq, sk, d, dtype)
                 q, k, v, do = (jnp.asarray(a, dtype) for a in arrs)
                 scale = d ** -0.5
 
@@ -102,13 +113,13 @@ def plain_function(monkeypatch):
 
 
 CASES = [(i, kind, dtype) for i in range(len(SHAPES)) for kind in KINDS
-         for dtype in ("float32", "bfloat16")]
+         for dtype in DTYPES]
 
 
 @pytest.mark.parametrize("i,kind,dtype", CASES)
 def test_backward_reference_matches_jax_grad(jax_grads, i, kind, dtype):
     b, sq, sk, d = SHAPES[i]
-    q, k, v, do = _torch(_inputs(i, b, sq, sk, d), dtype)
+    q, k, v, do = _torch(_inputs(i, b, sq, sk, d, dtype), dtype)
     o = port.attention_reference(q, k, v, kind, d ** -0.5)
     got = port.attention_backward_reference(q, k, v, o, do, kind, d ** -0.5)
     assert all(g.dtype == q.dtype for g in got)
@@ -119,7 +130,7 @@ def test_backward_reference_matches_jax_grad(jax_grads, i, kind, dtype):
 def test_autograd_of_plain_attention_matches_jax_grad(jax_grads, i, kind,
                                                       dtype):
     b, sq, sk, d = SHAPES[i]
-    q, k, v, do = _torch(_inputs(i, b, sq, sk, d), dtype)
+    q, k, v, do = _torch(_inputs(i, b, sq, sk, d, dtype), dtype)
     leaves = [t.requires_grad_() for t in (q, k, v)]
     o = port.nonlocal_attention(*leaves, kind, d ** -0.5)  # CPU: plain
     got = torch.autograd.grad(o, leaves, do)
@@ -129,7 +140,7 @@ def test_autograd_of_plain_attention_matches_jax_grad(jax_grads, i, kind,
 @pytest.mark.parametrize("i,kind,dtype", CASES)
 def test_tiled_backward_matches_jax_grad(jax_grads, i, kind, dtype):
     b, sq, sk, d = SHAPES[i]
-    q, k, v, do = _torch(_inputs(i, b, sq, sk, d), dtype)
+    q, k, v, do = _torch(_inputs(i, b, sq, sk, d, dtype), dtype)
     o, lse = _tiled_forward(q, k, v, kind, d ** -0.5)
     if kind == "softmax":
         # the statistics: log2 of the row sums of 2^(logits * scale * log2 e)
@@ -149,7 +160,7 @@ def test_tiled_backward_matches_jax_grad(jax_grads, i, kind, dtype):
 def test_function_with_plain_versions_matches_jax_grad(
         jax_grads, plain_function, i, kind, dtype):
     b, sq, sk, d = SHAPES[i]
-    q, k, v, do = _torch(_inputs(i, b, sq, sk, d), dtype)
+    q, k, v, do = _torch(_inputs(i, b, sq, sk, d, dtype), dtype)
     leaves = [t.requires_grad_() for t in (q, k, v)]
     o = port.NonLocalAttnFn.apply(*leaves, kind, d ** -0.5)
     assert o.dtype == q.dtype and plain_function == {"fwd": 1, "bwd": 0}
@@ -228,14 +239,15 @@ def test_backward_tiles_fit_shared_memory(dtype, d):
 def test_backward_tiles_match_the_cuda_source():
     """bwd_tiles repeats the table of bwd::Cfg in csrc/nonlocal_attn.cu."""
     text = (port._build.CSRC_DIR / "nonlocal_attn.cu").read_text()
-    assert ("static constexpr int NA = kBf16 ? (DP >= 512 ? (KV ? 16 : 32)\n"
-            "                                     : DP == 256 ? (KV ? 32 : 64) "
-            ": 64)\n                                  : (DP >= 512 ? 16 : 32);"
+    assert ("static constexpr int NA = kTc ? (DP >= 512 ? (KV ? 16 : 32)\n"
+            "                                   : DP == 256 ? (KV ? 32 : 64) "
+            ": 64)\n                                : (DP >= 512 ? 16 : 32);"
             in text)
-    assert ("static constexpr int NS = kBf16 ? (DP >= 512 ? 32\n"
-            "                                     : DP == 256 ? (KV ? 64 : 32) "
-            ": 64)\n                                  : (DP >= 512 ? 16 : 32);"
+    assert ("static constexpr int NS = kTc ? (DP >= 512 ? 32\n"
+            "                                   : DP == 256 ? (KV ? 64 : 32) "
+            ": 64)\n                                : (DP >= 512 ? 16 : 32);"
             in text)
+    assert "constexpr bool kTc = is_mma_type<T>;" in text
     assert "static_assert(kBytes <= 232448" in text
 
 
@@ -247,14 +259,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES + [(3, 65, 196, 512)])
 def test_backward_kernel_matches_plain_on_gpu(cuda_device, shape, kind,
                                               dtype):
     b, sq, sk, d = shape
     q, k, v, do = (t.to(cuda_device)
-                   for t in _torch(_inputs(3, b, sq, sk, d), dtype))
+                   for t in _torch(_inputs(3, b, sq, sk, d, dtype), dtype))
     port.reset_launches()
     o, lse = port.fused_attention(q, k, v, kind, d ** -0.5, with_lse=True)
     got = port.fused_attention_backward(q, k, v, o, do, lse, kind, d ** -0.5)
@@ -282,3 +294,41 @@ def test_dispatch_takes_the_function_under_grad_on_gpu(cuda_device):
         port.nonlocal_attention(q, k, v, "softmax", 0.125)
     assert port.LAUNCHES_BY_ENTRY["nl_attn_bwd_wgmma"] == 1
     assert port.LAUNCHES_BY_ENTRY[port.BWD_ENTRY] == 0
+
+
+def test_float16_ds_scale_keeps_small_gradients():
+    """At float16 output gradients of 2^-14 the unscaled dS lies mostly
+    below float16's normal range: the tiled plain version (the kernels'
+    arithmetic) keeps dQ within 2e-2 of the float32 backward with the
+    scale, and loses the limit without it; the scale is a power of two and
+    1 for the other dtypes."""
+    b, sq, sk, d = 2, 300, 80, 128
+    arrs = _inputs(5, b, sq, sk, d, "float16")
+    arrs[3] *= np.float32(2.0 ** -3)
+    q, k, v, do = _torch(arrs, "float16")
+    scale = d ** -0.5
+    o, lse = port.attention_tiled_reference(q, k, v, "softmax", scale, 80,
+                                            return_lse=True)
+    want = port.attention_backward_reference(q, k, v, o, do, "softmax",
+                                             scale)
+    mult = port.ds_scale(do, v, "softmax", scale, sk)
+    assert mult > 1 and math.log2(mult).is_integer()
+    assert port.ds_scale(do.bfloat16(), v.bfloat16(), "softmax", scale,
+                         sk) == 1.0
+
+    def err(got):
+        return max(float((g.float() - w.float()).abs().max()
+                         / w.float().abs().max()) for g, w in zip(got, want))
+
+    scaled = port.attention_backward_tiled_reference(
+        q, k, v, o, do, lse, "softmax", scale, entry=port.WGMMA_BWD_ENTRY)
+    assert err(scaled) <= TOL["float16"]
+    orig = port.ds_scale
+    try:
+        port.ds_scale = lambda *a: 1.0
+        unscaled = port.attention_backward_tiled_reference(
+            q, k, v, o, do, lse, "softmax", scale,
+            entry=port.WGMMA_BWD_ENTRY)
+    finally:
+        port.ds_scale = orig
+    assert err(unscaled) > 2 * err(scaled)

@@ -157,7 +157,7 @@ def test_bwd_kernel_entry_other_widths_keep_the_first_kernel(d, dtype):
 
 @pytest.mark.parametrize("dtype,d,exc", [
     (torch.bfloat16, 4, ValueError), (torch.bfloat16, 520, ValueError),
-    (torch.float32, 36, ValueError), (torch.float16, 64, TypeError),
+    (torch.float32, 36, ValueError), (torch.float8_e4m3fn, 64, TypeError),
     (torch.float64, 64, TypeError)])
 def test_bwd_kernel_entry_raises_on_what_no_kernel_takes(dtype, d, exc):
     with pytest.raises(exc):
@@ -273,7 +273,7 @@ def test_source_has_the_wgmma_backward():
     section = text[text.index("// nl_attn_bwd_wgmma: the same gradient"):]
     for needle in ("wgmma.mma_async.sync.aligned.m64n64k16",
                    "wgmma.mma_async.sync.aligned.m64n16k16",
-                   "wg::MmaRS<NC>::run", "cp.async.ca.shared.global",
+                   "wg::MmaRS<NC, T>::run", "cp.async.ca.shared.global",
                    "wg::cp_async_wait_all", "wg::fence_async_proxy",
                    "wg::bar_arrive(kBarHand", "wg::bar_sync(kBarHand",
                    'extern "C" int nl_attn_bwd_wgmma('):

@@ -141,7 +141,7 @@ def test_kernel_entry_other_widths_keep_the_wmma_kernel(d, dtype):
 
 @pytest.mark.parametrize("dtype,d,exc", [
     (torch.bfloat16, 4, ValueError), (torch.bfloat16, 520, ValueError),
-    (torch.float32, 36, ValueError), (torch.float16, 64, TypeError),
+    (torch.float32, 36, ValueError), (torch.float8_e4m3fn, 64, TypeError),
     (torch.float64, 64, TypeError)])
 def test_kernel_entry_raises_on_what_no_kernel_takes(dtype, d, exc):
     with pytest.raises(exc):

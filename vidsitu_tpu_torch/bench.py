@@ -42,6 +42,7 @@ import torch
 
 from .extract import resolve_device
 from .timing import call_ms, kernel_rows
+from .train.adam import make_adam
 
 # Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at the
 # full 700 W power limit): HBM3 bandwidth and bf16 tensor-core rate
@@ -176,10 +177,11 @@ def bench_slowfast_featext(clips: int = 32, iters: int = 10, device="cuda",
 def make_vb_train(preset: str, videos: int, device, overrides=None,
                   seed: int = 1):
     """The verb model of ``preset`` at full width and depth with flax's
-    initial values from ``seed``, float32 parameters on ``device`` (products
-    in ``train.dtype``), its Adam(0.9, 0.99), and a seeded batch of
-    ``videos`` x 5 clips of normal frames, pre-folded, with zero labels.
-    Returns (model, optimizer, batch, cfg)."""
+    initial values from ``seed``, parameters in ``train.param_dtype`` on
+    ``device`` (products in ``train.dtype``), its Adam(0.9, 0.99), and a
+    seeded batch of ``videos`` x 5 clips of normal frames, pre-folded, with
+    zero labels. Returns (model, optimizer, batch, cfg)."""
+    from .models.common import cast_params
     from .models.selector import DTYPES, init_model_variables
     from .models.vb_models import VbVideoModel
     from .models.video_backbone import VideoCfg
@@ -193,12 +195,13 @@ def make_vb_train(preset: str, videos: int, device, overrides=None,
         cfg.vid_mdl, dtype=DTYPES[dtype], remat=cfg.train.remat,
         remat_stages=cfg.train.remat_stages,
         bn_f32_stats=cfg.train.bn_f32_stats)
-    model = init_model_variables(VbVideoModel(vid_cfg, VB_CLASSES), seed)
+    model = init_model_variables(cast_params(
+        VbVideoModel(vid_cfg, VB_CLASSES),
+        DTYPES[cfg.train.param_dtype]), seed)
     model.to(dev).train()
     if dev.type == "cuda":
         model.to(memory_format=torch.channels_last_3d)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.99),
-                           eps=1e-8)
+    opt = make_adam(model.parameters(), 1e-4)
     vm = cfg.vid_mdl
     t, hw = int(vm.num_frames), int(vm.crop_size)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -274,9 +277,10 @@ def make_lang_train(task: str, mdl_name: str, bs: int, device, root: Path,
                     overrides: Optional[Dict] = None,
                     vocab: Optional[int] = None, seed: int = 1):
     """An SRL or evrel model with flax's initial values from ``seed``,
-    float32 parameters on ``device`` in ``train()`` (products in
-    ``train.dtype``), its Adam(0.9, 0.99), and one train batch of ``bs``
-    videos of a synthetic split written under ``root``, on the device.
+    parameters in ``train.param_dtype`` on ``device`` in ``train()``
+    (products in ``train.dtype``), its Adam(0.9, 0.99), and one train batch
+    of ``bs`` videos of a synthetic split written under ``root``, on the
+    device.
     ``vocab`` widens the SRL model's vocabulary (the batch's token ids stay
     those of the synthetic one). Returns (model, optimizer, batch, cfg)."""
     from .data import get_data
@@ -306,8 +310,7 @@ def make_lang_train(task: str, mdl_name: str, bs: int, device, root: Path,
         model = build_model(cfg, comm)
     init_model_variables(model, seed)
     model.to(dev).train()
-    opt = torch.optim.Adam(model.parameters(), lr=1e-4, betas=(0.9, 0.99),
-                           eps=1e-8)
+    opt = make_adam(model.parameters(), 1e-4)
     batch = batch_to_device(next(iter(data.train_dl)), dev)
     return model, opt, batch, cfg
 

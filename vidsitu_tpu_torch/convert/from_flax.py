@@ -47,12 +47,22 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
 
 
 def _tensor(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    """A float32 tensor of ``x``; a bfloat16 or float16 array keeps its
+    dtype (a bfloat16 one, ``ml_dtypes``' type as JAX hands it over, is
+    taken by its 16-bit pattern, so no ``ml_dtypes`` is needed here)."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    if a.dtype == np.float16:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Nested flax ``{'params', 'batch_stats'}`` numpy tree -> state_dict
-    (float32 tensors; BatchNorm step counters set to 0)."""
+    (float32 tensors, bfloat16 and float16 leaves in their own dtype;
+    BatchNorm step counters set to 0)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(variables.get("params", {})):
         *mod, name = path

@@ -1,9 +1,13 @@
 // Non-local attention for NVIDIA Hopper (sm_90a). Two forward kernels: the
 // wmma / float32 one first (nl_attn_fwd), then the wgmma one
-// (nl_attn_fwd_wgmma, with its own note), which takes bf16 at d in {64, 128,
-// 256, 512}; then two backward entries, nl_attn_bwd (wmma / float32) and
-// nl_attn_bwd_wgmma (bf16 at the same widths), each with its own note.
-// ops/attention.py picks each entry from dtype and d.
+// (nl_attn_fwd_wgmma, with its own note), which takes bf16 and f16 at d in
+// {64, 128, 256, 512}; then two backward entries, nl_attn_bwd (wmma /
+// float32) and nl_attn_bwd_wgmma (bf16 and f16 at the same widths), each with
+// its own note. Every kernel is a template over its element type: float32,
+// bf16 or f16 (__half); the two 16-bit types share every tile, instruction
+// shape and code path and differ only in the conversions and the type names
+// of the tensor-core instructions. ops/attention.py picks each entry from
+// dtype and d and passes the dtype as a code (0 float32, 1 bf16, 2 f16).
 //
 // Replaces the TPU kernel vidsitu_tpu/ops/attention.py:30 _fused_attn_kernel
 // (reached through fused_attention, :61). Computes, for each batch b,
@@ -26,7 +30,7 @@
 //    walks K and V in tiles staged in shared memory, with an online softmax
 //    (running max and sum per row, float32), so device memory sees only
 //    q, k, v and o;
-//  * bf16 products run on the tensor cores (WMMA 16x16x16, float32
+//  * bf16 / f16 products run on the tensor cores (WMMA 16x16x16, float32
 //    accumulate); the block's Q rows stay in registers as WMMA fragments for
 //    the whole key loop;
 //  * the float32 output accumulator (64 x d, up to d=512) lives in dynamic
@@ -45,6 +49,7 @@
 // C entry: nl_attn_fwd (after this kernel), returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -54,8 +59,36 @@
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+// The dtype codes of the C entries.
+constexpr int kDtypeF32 = 0;
+constexpr int kDtypeBf16 = 1;
+constexpr int kDtypeF16 = 2;
 
 namespace {
+
+// 16-bit element types run their products on the tensor cores (bf16 and f16
+// alike); float32 takes FMA.
+template <typename T>
+constexpr bool is_mma_type =
+    std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half_rn(x);
+}
 
 constexpr int BQ = 64;                    // query rows per block
 constexpr int NWARPS = 4;                 // warp w owns query rows [16w, 16w+16)
@@ -72,24 +105,24 @@ __host__ __device__ constexpr size_t align128(size_t n) {
 // pointer 32-byte aligned.
 template <typename T, int DP>
 struct Cfg {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  // keys per tile; bf16 at d<=256 keeps the block under half the SM's
-  // shared memory so that two blocks fit on one SM
-  static constexpr int BK = kBf16 ? (DP == 256 ? 32 : 64) : 32;
+  static constexpr bool kTc = is_mma_type<T>;
+  // keys per tile; a 16-bit type at d<=256 keeps the block under half the
+  // SM's shared memory so that two blocks fit on one SM
+  static constexpr int BK = kTc ? (DP == 256 ? 32 : 64) : 32;
   static constexpr int LDKV = DP + 16 / (int)sizeof(T);  // K/V tile pitch (T)
   static constexpr int LDO = DP + 4;                     // O accumulator (float)
   static constexpr int LDS = BK + 4;                     // logits (float)
-  static constexpr int LDP = BK + 8;                     // bf16 probabilities
-  static constexpr int LDQ = DP + 8;                     // bf16 Q staging
+  static constexpr int LDP = BK + 8;                     // 16-bit probabilities
+  static constexpr int LDQ = DP + 8;                     // 16-bit Q staging
   static constexpr size_t kO = 0;
   static constexpr size_t kKV = kO + align128(sizeof(float) * BQ * LDO);
   static constexpr size_t kS = kKV + align128(sizeof(T) * BK * LDKV);
   static constexpr size_t kP = kS + align128(sizeof(float) * BQ * LDS);
   static constexpr size_t kStats =
-      kP + (kBf16 ? align128(sizeof(bf16) * BQ * LDP) : 0);
+      kP + (kTc ? align128(sizeof(T) * BQ * LDP) : 0);
   static constexpr size_t kBytes = kStats + sizeof(float) * 2 * BQ;
   static_assert(kBytes <= 232448, "tile exceeds the SM's shared memory");
-  static_assert(!kBf16 || sizeof(bf16) * BQ * LDQ <= sizeof(float) * BQ * LDO,
+  static_assert(!kTc || sizeof(T) * BQ * LDQ <= sizeof(float) * BQ * LDO,
                 "Q staging must fit in the O accumulator");
 };
 
@@ -112,21 +145,20 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
   }
 }
 
-// The block's Q rows: WMMA fragments in registers for bf16; float32 reads Q
-// from device memory (it stays in L1) and keeps nothing.
-template <typename T, int DP>
+// The block's Q rows: WMMA fragments in registers for a 16-bit type; float32
+// reads Q from device memory (it stays in L1) and keeps nothing.
+template <typename T, int DP, bool TC = is_mma_type<T>>
 struct QRegs {};
 
-template <int DP>
-struct QRegs<bf16, DP> {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> f[DP / 16];
+template <typename T, int DP>
+struct QRegs<T, DP, true> {
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> f[DP / 16];
 };
 
 // S[16w.., 0..BK) = Q K^T for this warp's 16 rows (tensor cores).
-template <int DP, int BK, int LDKV, int LDS>
-__device__ __forceinline__ void logits_bf16(const QRegs<bf16, DP>& q,
-                                            const bf16* sK, float* sS,
-                                            int warp) {
+template <typename T, int DP, int BK, int LDKV, int LDS>
+__device__ __forceinline__ void logits_mma(const QRegs<T, DP>& q, const T* sK,
+                                           float* sS, int warp) {
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
 #pragma unroll
   for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
@@ -135,7 +167,7 @@ __device__ __forceinline__ void logits_bf16(const QRegs<bf16, DP>& q,
 #pragma unroll
     for (int n = 0; n < BK / 16; ++n) {
       // B = K^T: element (kk', n') is K[16n + n'][16kk + kk'], column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kf;
       wmma::load_matrix_sync(kf, sK + 16 * n * LDKV + 16 * kk, LDKV);
       wmma::mma_sync(acc[n], q.f[kk], kf, acc[n]);
     }
@@ -195,10 +227,10 @@ __device__ __forceinline__ void logits_f32(const float* qb, int q0, int sq,
 }
 
 // O[16w.., :] += P V for this warp's rows (tensor cores, accumulator in smem).
-template <int DP, int BK, int LDKV, int LDO, int LDP>
-__device__ __forceinline__ void pv_bf16(const bf16* sP, const bf16* sV,
-                                        float* sO, int warp) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf[BK / 16];
+template <typename T, int DP, int BK, int LDKV, int LDO, int LDP>
+__device__ __forceinline__ void pv_mma(const T* sP, const T* sV, float* sO,
+                                       int warp) {
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> pf[BK / 16];
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     wmma::load_matrix_sync(pf[kk], sP + 16 * warp * LDP + 16 * kk, LDP);
@@ -210,7 +242,7 @@ __device__ __forceinline__ void pv_bf16(const bf16* sP, const bf16* sV,
     wmma::load_matrix_sync(acc, o, LDO, wmma::mem_row_major);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
       wmma::load_matrix_sync(vf, sV + 16 * kk * LDKV + 16 * n, LDKV);
       wmma::mma_sync(acc, pf[kk], vf, acc);
     }
@@ -247,11 +279,6 @@ __device__ __forceinline__ void pv_f32(const float* sP, const float* sV,
   }
 }
 
-__device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store_out(bf16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
-
 template <typename T, int DP>
 __global__ void __launch_bounds__(NTHREADS)
 nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -264,7 +291,7 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sO = reinterpret_cast<float*>(smem + C::kO);
   T* sKV = reinterpret_cast<T*>(smem + C::kKV);
   float* sS = reinterpret_cast<float*>(smem + C::kS);
-  bf16* sP = reinterpret_cast<bf16*>(smem + C::kP);
+  T* sP = reinterpret_cast<T*>(smem + C::kP);
   float* sAlpha = reinterpret_cast<float*>(smem + C::kStats);
   float* sL = sAlpha + BQ;
 
@@ -277,9 +304,9 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * sk * d;
 
   QRegs<T, DP> qr;
-  if constexpr (C::kBf16) {
+  if constexpr (C::kTc) {
     // stage the Q tile through the (not yet used) accumulator buffer
-    bf16* stage = reinterpret_cast<bf16*>(sO);
+    T* stage = reinterpret_cast<T*>(sO);
     load_rows<T, DP, BQ, C::LDQ>(stage, qb, q0, sq, d);
     __syncthreads();
 #pragma unroll
@@ -305,8 +332,8 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // every warp is done with the previous V tile
     load_rows<T, DP, BK, C::LDKV>(sKV, kb, key0, sk, d);
     __syncthreads();
-    if constexpr (C::kBf16) {
-      logits_bf16<DP, BK, C::LDKV, C::LDS>(qr, sKV, sS, warp);
+    if constexpr (C::kTc) {
+      logits_mma<T, DP, BK, C::LDKV, C::LDS>(qr, sKV, sS, warp);
     } else {
       logits_f32<C::LDKV, C::LDS>(qb, q0, sq, d, sKV, sS, warp, lane);
     }
@@ -332,8 +359,8 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = 2 * j + half;
         const float p = __expf(srow[c] - m_new);
         sum += p;
-        if constexpr (C::kBf16) {
-          sP[row * C::LDP + c] = __float2bfloat16(p);
+        if constexpr (C::kTc) {
+          sP[row * C::LDP + c] = from_f32<T>(p);
         } else {
           srow[c] = p;
         }
@@ -355,8 +382,8 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < BK / 2; ++j) {
         const int c = 2 * j + half;
         const float p = key0 + c < sk ? srow[c] * inv_sk : 0.f;
-        if constexpr (C::kBf16) {
-          sP[row * C::LDP + c] = __float2bfloat16(p);
+        if constexpr (C::kTc) {
+          sP[row * C::LDP + c] = from_f32<T>(p);
         } else {
           srow[c] = p;
         }
@@ -365,8 +392,8 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // every warp is done with the K tile
     load_rows<T, DP, BK, C::LDKV>(sKV, vb, key0, sk, d);
     __syncthreads();
-    if constexpr (C::kBf16) {
-      pv_bf16<DP, BK, C::LDKV, C::LDO, C::LDP>(sP, sKV, sO, warp);
+    if constexpr (C::kTc) {
+      pv_mma<T, DP, BK, C::LDKV, C::LDO, C::LDP>(sP, sKV, sO, warp);
     } else {
       pv_f32<DP, C::LDKV, C::LDO, C::LDS>(sS, sKV, sO, warp, lane);
     }
@@ -383,7 +410,9 @@ nl_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= sq) break;
     const float inv = softmax ? 1.f / sL[r] : 1.f;
     T* dst = o + (b * sq + qi) * d;
-    for (int c = lane; c < d; c += 32) store_out(dst + c, sO[r * C::LDO + c] * inv);
+    for (int c = lane; c < d; c += 32) {
+      dst[c] = from_f32<T>(sO[r * C::LDO + c] * inv);
+    }
   }
 }
 
@@ -418,12 +447,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v, o: device pointers (16-byte aligned, contiguous). lse: null, or
 // (b, sq) float32 that receives each row's log-sum-exp (log2 domain) under
-// softmax. kind: 0 softmax, 1 dot_product. is_bf16: 1 bf16, 0 float32.
+// softmax. kind: 0 softmax, 1 dot_product. dtype: 0 float32, 1 bf16, 2 f16.
 // Requires 1 <= d <= 512, d % 8 == 0, sk >= 1, 1 <= b <= 65535. Returns a
 // cudaError_t.
 extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
                            float* lse, int b, int sq, int sk, int d, int kind,
-                           float scale, int is_bf16, void* stream) {
+                           float scale, int dtype, void* stream) {
   if (b < 1 || b > 65535 || sq < 0 || sk < 1 || d < 8 || d > 512 || d % 8 != 0 ||
       (kind != 0 && kind != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -431,13 +460,17 @@ extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
   if (sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int softmax = kind == 0;
-  return (int)(is_bf16 ? launch_d<bf16>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s)
-                       : launch_d<float>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s));
+  switch (dtype) {
+    case kDtypeF32: return (int)launch_d<float>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s);
+    case kDtypeBf16: return (int)launch_d<bf16>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s);
+    case kDtypeF16: return (int)launch_d<f16>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ===========================================================================
 // nl_attn_fwd_wgmma: the same function, redesigned for Hopper's warpgroup
-// tensor-core instruction. bf16 only, d in {64, 128, 256, 512}.
+// tensor-core instruction. bf16 and f16, d in {64, 128, 256, 512}.
 //
 // Replaces the same TPU kernel (vidsitu_tpu/ops/attention.py:30, reached
 // through fused_attention, :61). Bound by operations, as above: 630 FLOP per
@@ -445,10 +478,11 @@ extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
 // time the tensor cores run, and how little else the SM does per key tile.
 //
 // What the design does about it:
-//  * both products are wgmma.mma_async (m64nNk16, bf16 in, float32 out).
+//  * both products are wgmma.mma_async (m64nNk16, bf16 or f16 in, float32
+//    out).
 //    S = Q K^T reads Q and the K tile from shared memory in the 128-byte
 //    swizzled K-major layout; O += P V takes P from registers (the S
-//    accumulator's own layout, packed to bf16 in place) and the V tile from
+//    accumulator's own layout, packed to bf16 / f16 in place) and the V tile from
 //    shared memory as an MN-major B operand (the transpose flag of the
 //    instruction: V stays keys x d, as it lies in device memory);
 //  * O (64 x up to 256 float32 = 128 registers a thread), the running max
@@ -473,8 +507,8 @@ extern "C" int nl_attn_fwd(const void* q, const void* k, const void* v, void* o,
 //  * key tiles sized to the real key counts: 80 keys up to d = 256
 //    (784 = 10 x 80 - 16), 32 at d = 512 (196 = 7 x 32 - 28);
 //  * exp2 with scale * log2(e) folded into one factor; dot_product skips the
-//    softmax and multiplies S by 1 / Sk before the bf16 conversion;
-//  * the epilogue divides by the row sum in registers and stores bf16 through
+//    softmax and multiplies S by 1 / Sk before the 16-bit conversion;
+//  * the epilogue divides by the row sum in registers and stores T through
 //    shared memory (the dead Q and ring space) with 16-byte stores; when
 //    asked, it also writes the row's log-sum-exp, m + log2(l), for the
 //    backward.
@@ -563,8 +597,18 @@ __device__ __forceinline__ float fast_exp2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;  // ex2(-inf) = +0
 }
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo: low 16 bits
+// two float32 values rounded to T and packed in one register (.x = lo: the
+// low 16 bits), the A-fragment layout of wgmma
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
+  __half2 p = __floats2half2_rn(lo, hi);  // cvt.rn.f16x2.f32
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
@@ -579,211 +623,248 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 }
 
 // D(64 x N) (+)= A(64 x 16) B(16 x N): A and B from shared memory, both
-// K-major (B is the K tile: N keys x 16 of d).
-template <int N>
+// K-major (B is the K tile: N keys x 16 of d), elements of T (bf16 or f16:
+// the instruction's .bf16.bf16 or .f16.f16 form, float32 accumulators).
+template <int N, typename T>
 struct MmaSS;
 // The same with A from registers and B MN-major (the V tile: 16 keys x N).
-template <int N>
+template <int N, typename T>
 struct MmaRS;
 
-template <>
-struct MmaSS<80> {
+template <typename T>
+struct MmaSS<80, T> {
   static __device__ __forceinline__ void run(float (&d)[40], uint64_t a,
                                              uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39 "
-      "}, %40, %41, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+#define NL_WGMMA(TY)                                             \
+  asm volatile(                                                  \
+      "{\n"                                                      \
+      ".reg .pred p;\n"                                          \
+      "setp.ne.b32 p, %42, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " "\
+      "{"                                                        \
+      " %0, %1, %2, %3, %4, %5, %6, %7, "                        \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                \
+      " %24, %25, %26, %27, %28, %29, %30, %31, "                \
+      " %32, %33, %34, %35, %36, %37, %38, %39 "                 \
+      "}, %40, %41, p, 1, 1, 0, 0;\n"                            \
+      "}\n"                                                      \
+      :                                                          \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),        \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])         \
       : "l"(a), "l"(b), "r"(scale_d));
+    if constexpr (std::is_same<T, f16>::value) {
+      NL_WGMMA("f16")
+    } else {
+      NL_WGMMA("bf16")
+    }
+#undef NL_WGMMA
   }
 };
 
-template <>
-struct MmaSS<32> {
+template <typename T>
+struct MmaSS<32, T> {
   static __device__ __forceinline__ void run(float (&d)[16], uint64_t a,
                                              uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define NL_WGMMA(TY)                                             \
+  asm volatile(                                                  \
+      "{\n"                                                      \
+      ".reg .pred p;\n"                                          \
+      "setp.ne.b32 p, %18, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "\
+      "{"                                                        \
+      " %0, %1, %2, %3, %4, %5, %6, %7, "                        \
+      " %8, %9, %10, %11, %12, %13, %14, %15 "                   \
+      "}, %16, %17, p, 1, 1, 0, 0;\n"                            \
+      "}\n"                                                      \
+      :                                                          \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])         \
       : "l"(a), "l"(b), "r"(scale_d));
+    if constexpr (std::is_same<T, f16>::value) {
+      NL_WGMMA("f16")
+    } else {
+      NL_WGMMA("bf16")
+    }
+#undef NL_WGMMA
   }
 };
 
-template <>
-struct MmaRS<64> {
+template <typename T>
+struct MmaRS<64, T> {
   static __device__ __forceinline__ void run(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define NL_WGMMA(TY)                                                      \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %37, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "         \
+      "{"                                                                 \
+      " %0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31 "                          \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"                       \
+      "}\n"                                                               \
+      :                                                                   \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                     \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                     \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                   \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                 \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                 \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                 \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                 \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                  \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    if constexpr (std::is_same<T, f16>::value) {
+      NL_WGMMA("f16")
+    } else {
+      NL_WGMMA("bf16")
+    }
+#undef NL_WGMMA
   }
 };
 
-template <>
-struct MmaRS<128> {
+template <typename T>
+struct MmaRS<128, T> {
   static __device__ __forceinline__ void run(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define NL_WGMMA(TY)                                                      \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %69, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "        \
+      "{"                                                                 \
+      " %0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      " %32, %33, %34, %35, %36, %37, %38, %39, "                         \
+      " %40, %41, %42, %43, %44, %45, %46, %47, "                         \
+      " %48, %49, %50, %51, %52, %53, %54, %55, "                         \
+      " %56, %57, %58, %59, %60, %61, %62, %63 "                          \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"                       \
+      "}\n"                                                               \
+      :                                                                   \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                     \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                     \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                   \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                 \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                 \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                 \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                 \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                 \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                 \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                 \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                 \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                 \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                 \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                 \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                 \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    if constexpr (std::is_same<T, f16>::value) {
+      NL_WGMMA("f16")
+    } else {
+      NL_WGMMA("bf16")
+    }
+#undef NL_WGMMA
   }
 };
 
-template <>
-struct MmaRS<256> {
+template <typename T>
+struct MmaRS<256, T> {
   static __device__ __forceinline__ void run(float (&d)[128],
                                              const uint32_t (&a)[4],
                                              uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63, "
-      " %64, %65, %66, %67, %68, %69, %70, %71, "
-      " %72, %73, %74, %75, %76, %77, %78, %79, "
-      " %80, %81, %82, %83, %84, %85, %86, %87, "
-      " %88, %89, %90, %91, %92, %93, %94, %95, "
-      " %96, %97, %98, %99, %100, %101, %102, %103, "
-      " %104, %105, %106, %107, %108, %109, %110, %111, "
-      " %112, %113, %114, %115, %116, %117, %118, %119, "
-      " %120, %121, %122, %123, %124, %125, %126, %127 "
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define NL_WGMMA(TY)                                                      \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %133, 0;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "        \
+      "{"                                                                 \
+      " %0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31, "                         \
+      " %32, %33, %34, %35, %36, %37, %38, %39, "                         \
+      " %40, %41, %42, %43, %44, %45, %46, %47, "                         \
+      " %48, %49, %50, %51, %52, %53, %54, %55, "                         \
+      " %56, %57, %58, %59, %60, %61, %62, %63, "                         \
+      " %64, %65, %66, %67, %68, %69, %70, %71, "                         \
+      " %72, %73, %74, %75, %76, %77, %78, %79, "                         \
+      " %80, %81, %82, %83, %84, %85, %86, %87, "                         \
+      " %88, %89, %90, %91, %92, %93, %94, %95, "                         \
+      " %96, %97, %98, %99, %100, %101, %102, %103, "                     \
+      " %104, %105, %106, %107, %108, %109, %110, %111, "                 \
+      " %112, %113, %114, %115, %116, %117, %118, %119, "                 \
+      " %120, %121, %122, %123, %124, %125, %126, %127 "                  \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"                  \
+      "}\n"                                                               \
+      :                                                                   \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                     \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                     \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                   \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                 \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                 \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                 \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                 \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                 \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                 \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                 \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                 \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                 \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                 \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                 \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                 \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),                 \
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),                 \
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),                 \
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),                 \
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),                 \
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),                 \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),                 \
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),                 \
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),                 \
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),                 \
+      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),             \
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),             \
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),             \
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),             \
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),             \
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),             \
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])              \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    if constexpr (std::is_same<T, f16>::value) {
+      NL_WGMMA("f16")
+    } else {
+      NL_WGMMA("bf16")
+    }
+#undef NL_WGMMA
   }
 };
 
-// Rows [row0, row0 + ROWS) of a (nrows, D) row-major bf16 matrix into a
-// swizzled tile: D / 64 column blocks of ROWS x 128 bytes, the 16-byte chunk
-// c of row r stored at chunk c ^ (r % 8). Rows past nrows are zero-filled.
+// Rows [row0, row0 + ROWS) of a (nrows, D) row-major matrix of a 16-bit type
+// into a swizzled tile: D / 64 column blocks of ROWS x 128 bytes, the 16-byte
+// chunk c of row r stored at chunk c ^ (r % 8). Rows past nrows are
+// zero-filled.
 template <int ROWS, int D>
-__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const void* src,
                                                 int row0, int nrows) {
   constexpr int CPR = D / 8;  // 16-byte chunks a row
   constexpr int STEPS = (ROWS * CPR + kThreads - 1) / kThreads;
@@ -794,7 +875,8 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
     const int r = i / CPR;
     const int c = i % CPR;
     const bool ok = row0 + r < nrows;
-    const bf16* g = src + (size_t)(ok ? row0 + r : 0) * D + c * 8;
+    const char* g = static_cast<const char*>(src) +
+                    ((size_t)(ok ? row0 + r : 0) * D + c * 8) * 2;
     const uint32_t s =
         dst + (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
     cp_async16(s, g, ok ? 16 : 0);
@@ -804,8 +886,8 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
 // One ring slot: the K tile, then the V tile, of keys [key0, key0 + BK), as
 // one cp.async group (with whatever this thread issued before it).
 template <int D>
-__device__ __forceinline__ void load_kv_async(uint32_t slot, const bf16* kb,
-                                              const bf16* vb, int key0,
+__device__ __forceinline__ void load_kv_async(uint32_t slot, const void* kb,
+                                              const void* vb, int key0,
                                               int sk) {
   using C = Cfg<D>;
   load_tile_async<C::BK, D>(slot, kb, key0, sk);
@@ -813,10 +895,10 @@ __device__ __forceinline__ void load_kv_async(uint32_t slot, const bf16* kb,
   cp_async_commit();
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
+nl_attn_fwd_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
                          float* __restrict__ lse, int sq, int sk, int softmax,
                          float scale) {
   using C = Cfg<D>;
@@ -837,9 +919,9 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int grow = C::kSplit ? 0 : kRowsPerGroup * group;  // group's rows
   const int col0 = C::kSplit ? NO * group : 0;             // group's columns
   const size_t b = blockIdx.y;
-  const bf16* qb = q + b * sq * D;
-  const bf16* kb = k + b * sk * D;
-  const bf16* vb = v + b * sk * D;
+  const T* qb = q + b * sq * D;
+  const T* kb = k + b * sk * D;
+  const T* vb = v + b * sk * D;
   // a warpgroup whose rows all lie past Sq loads its share and computes nothing
   const bool active = q0 + grow < sq;
 
@@ -886,7 +968,7 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk >> 2) * 128 * C::QROWS + (kk & 3) * 32;
       const uint32_t koff = (kk >> 2) * 128 * BK + (kk & 3) * 32;
-      MmaSS<BK>::run(s, smem_desc(sQ + grow * 128 + off, 16, 1024),
+      MmaSS<BK, T>::run(s, smem_desc(sQ + grow * 128 + off, 16, 1024),
                      smem_desc(sK + koff, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -966,11 +1048,11 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[8 * kk + 0], s[8 * kk + 1]),
-                              pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
-                              pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
-                              pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
-      MmaRS<NO>::run(acc, pa,
+      const uint32_t pa[4] = {pack2<T>(s[8 * kk + 0], s[8 * kk + 1]),
+                              pack2<T>(s[8 * kk + 2], s[8 * kk + 3]),
+                              pack2<T>(s[8 * kk + 4], s[8 * kk + 5]),
+                              pack2<T>(s[8 * kk + 6], s[8 * kk + 7])};
+      MmaRS<NO, T>::run(acc, pa,
                      smem_desc(sV + (col0 / 64) * 128 * BK + kk * 2048,
                                128 * BK, 1024),
                      1);
@@ -980,7 +1062,7 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(acc);
   }
 
-  // Epilogue: divide by the row sum, stage bf16 rows in shared memory (Q and
+  // Epilogue: divide by the row sum, stage T rows in shared memory (Q and
   // the ring are dead), store 16 bytes a thread; rows past Sq are not stored.
   __syncthreads();
   if (active) {
@@ -1004,7 +1086,7 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NO / 8; ++j) {
         *reinterpret_cast<uint32_t*>(row + (col0 + 8 * j + 2 * quad) * 2) =
-            pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+            pack2<T>(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       }
     }
   }
@@ -1020,44 +1102,58 @@ nl_attn_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int b, int sq, int sk, int softmax, float scale,
                    cudaStream_t stream) {
   using C = Cfg<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      nl_attn_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kBytes);
+      nl_attn_fwd_wgmma_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + C::QROWS - 1) / C::QROWS, b);
-  nl_attn_fwd_wgmma_kernel<D><<<grid, kThreads, C::kBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk,
-      softmax, scale);
+  nl_attn_fwd_wgmma_kernel<T, D><<<grid, kThreads, C::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, softmax,
+      scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int b, int sq, int sk, int d, int softmax,
+                     float scale, cudaStream_t s) {
+  switch (d) {
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+    case 256: return launch<T, 256>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+    case 512: return launch<T, 512>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace wg
 
-// The wgmma kernel: bf16 only. q, k, v, o: device pointers (16-byte aligned,
-// contiguous). lse: null, or (b, sq) float32 for the rows' log-sum-exp (log2
-// domain) under softmax. kind: 0 softmax, 1 dot_product. Requires d in {64,
-// 128, 256, 512}, sk >= 1, 1 <= b <= 65535; anything else is
-// cudaErrorInvalidValue.
+// The wgmma kernel: bf16 and f16. q, k, v, o: device pointers (16-byte
+// aligned, contiguous). lse: null, or (b, sq) float32 for the rows'
+// log-sum-exp (log2 domain) under softmax. kind: 0 softmax, 1 dot_product.
+// dtype: 1 bf16, 2 f16. Requires d in {64, 128, 256, 512}, sk >= 1,
+// 1 <= b <= 65535; anything else is cudaErrorInvalidValue.
 extern "C" int nl_attn_fwd_wgmma(const void* q, const void* k, const void* v,
                                  void* o, float* lse, int b, int sq, int sk,
-                                 int d, int kind, float scale, void* stream) {
+                                 int d, int kind, float scale, int dtype,
+                                 void* stream) {
   if (b < 1 || b > 65535 || sq < 0 || sk < 1 || (kind != 0 && kind != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int softmax = kind == 0;
-  switch (d) {
-    case 64: return (int)wg::launch<64>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
-    case 128: return (int)wg::launch<128>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
-    case 256: return (int)wg::launch<256>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
-    case 512: return (int)wg::launch<512>(q, k, v, o, lse, b, sq, sk, softmax, scale, s);
+  switch (dtype) {
+    case kDtypeBf16:
+      return (int)wg::launch_d<bf16>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s);
+    case kDtypeF16:
+      return (int)wg::launch_d<f16>(q, k, v, o, lse, b, sq, sk, d, softmax, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1092,7 +1188,15 @@ extern "C" int nl_attn_fwd_wgmma(const void* q, const void* k, const void* v,
 //    products are WMMA 16x16x16 on bf16 with float32 accumulation (8 warps
 //    take the 16x16 output tiles in turn), plain FMA in float32;
 //  * P and dS are rounded to the input type before the products that take
-//    them, as the forward rounds P;
+//    them, as the forward rounds P. In f16, whose range ends at 2^-24, dS is
+//    first scaled by a power of two 2^k, and dK and dQ by 2^-k after the
+//    sums (exact: only the rounding grid moves). k puts a bound on |dS| at
+//    2^14: |dS_ij| <= 2 scale |dO_i| max_j |V_j| (softmax; P_ij <= 1,
+//    |dP_ij - D_i| <= 2 max_j |dP_ij|), |dO_i| |V_j| / Sk (dot_product),
+//    from the largest squared row norms of dO and V, which one more launch
+//    (nl_attn_bwd_norms_kernel) writes. Without it the small dS of a
+//    training step's gradients round to zero in f16 (bf16 has float32's
+//    range and takes k = 0);
 //  * the tiles are sized to the shared memory at each head width: at d = 512
 //    a 64-row tile of K, V, Q and dO alone is 256 KB, so the dK / dV pass
 //    keeps 16 keys against 32 queries there.
@@ -1113,13 +1217,13 @@ constexpr int kBwdWarps = kBwdThreads / 32;
 // always (query rows x key columns).
 template <typename T, int DP, bool KV>
 struct Cfg {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int NA = kBf16 ? (DP >= 512 ? (KV ? 16 : 32)
-                                     : DP == 256 ? (KV ? 32 : 64) : 64)
-                                  : (DP >= 512 ? 16 : 32);
-  static constexpr int NS = kBf16 ? (DP >= 512 ? 32
-                                     : DP == 256 ? (KV ? 64 : 32) : 64)
-                                  : (DP >= 512 ? 16 : 32);
+  static constexpr bool kTc = is_mma_type<T>;
+  static constexpr int NA = kTc ? (DP >= 512 ? (KV ? 16 : 32)
+                                   : DP == 256 ? (KV ? 32 : 64) : 64)
+                                : (DP >= 512 ? 16 : 32);
+  static constexpr int NS = kTc ? (DP >= 512 ? 32
+                                   : DP == 256 ? (KV ? 64 : 32) : 64)
+                                : (DP >= 512 ? 16 : 32);
   static constexpr int NACC = KV ? 2 : 1;       // float accumulators
   static constexpr int QROWS = KV ? NS : NA;    // query rows of S
   static constexpr int KCOLS = KV ? NA : NS;    // key columns of S
@@ -1141,15 +1245,26 @@ struct Cfg {
   static_assert(NA % 16 == 0 && NS % 16 == 0, "WMMA tiles");
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// The power of two that dS is scaled by before its rounding (see the note
+// above): 1 but for f16, where it is read from the squared row norms that
+// nl_attn_bwd_norms_kernel left in bound (float bits: the largest of dO's,
+// then of V's). ops/attention.py's ds_scale computes the same.
+constexpr float kDsTarget = 14.f;  // log2 of the bound's target, 2^14
+constexpr int kDsMaxShift = 60;
 template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ float ds_scale(const unsigned* bound, int softmax,
+                                          float scale, float inv_sk) {
+  if constexpr (!std::is_same<T, f16>::value) {
+    return 1.f;
+  } else {
+    const float c = softmax ? 2.f * scale : inv_sk;
+    const float b2 = c * c * __uint_as_float(bound[0]) *
+                     __uint_as_float(bound[1]);
+    if (!(b2 > 0.f)) return 1.f;  // every dS is 0
+    int k = (int)floorf(kDsTarget - 0.5f * log2f(b2));
+    k = k < -kDsMaxShift ? -kDsMaxShift : (k > kDsMaxShift ? kDsMaxShift : k);
+    return ldexpf(1.f, k);
+  }
 }
 
 // Rows [row0, row0 + ROWS) of a (nrows, d) row-major matrix into a shared
@@ -1173,11 +1288,12 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
 
 // C (M x N, float) = or += op(A) op(B), op(A) M x K, op(B) K x N. A is
 // stored M x K row-major, or K x M when TA (its transpose is used); B is
-// stored K x N, or N x K when TB. bf16: WMMA, the warps take the 16x16
+// stored K x N, or N x K when TB. bf16 / f16: WMMA, the warps take the 16x16
 // output tiles in turn; the accumulator passes through shared memory.
-template <int M, int N, int K, bool TA, bool TB, bool ACC>
-__device__ __forceinline__ void mma_block(float* C, int ldc, const bf16* A,
-                                          int lda, const bf16* B, int ldb) {
+template <int M, int N, int K, bool TA, bool TB, bool ACC, typename T,
+          typename std::enable_if<is_mma_type<T>, int>::type = 0>
+__device__ __forceinline__ void mma_block(float* C, int ldc, const T* A,
+                                          int lda, const T* B, int ldb) {
   using LA = typename std::conditional<TA, wmma::col_major,
                                        wmma::row_major>::type;
   using LB = typename std::conditional<TB, wmma::col_major,
@@ -1196,8 +1312,8 @@ __device__ __forceinline__ void mma_block(float* C, int ldc, const bf16* A,
     }
 #pragma unroll 4
     for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> b;
       wmma::load_matrix_sync(
           a, TA ? A + 16 * kk * lda + 16 * i : A + 16 * i * lda + 16 * kk, lda);
       wmma::load_matrix_sync(
@@ -1227,12 +1343,12 @@ __device__ __forceinline__ void mma_block(float* C, int ldc, const float* A,
 }
 
 // From S and dP (R query rows x CC key columns, float): P (when sP is set)
-// and dS, rounded to T; zero outside the (Sq, Sk) rectangle.
+// and dS times ds_mult, rounded to T; zero outside the (Sq, Sk) rectangle.
 template <typename T, int R, int CC>
 __device__ __forceinline__ void probs_and_ds(
     const float* sS, const float* sdP, int lds, T* sP, T* sdS, int ldp,
     const float* sLse, const float* sD, int q0, int sq, int k0, int sk,
-    int softmax, float c2, float scale, float inv_sk) {
+    int softmax, float c2, float scale, float inv_sk, float ds_mult) {
   for (int e = threadIdx.x; e < R * CC; e += kBwdThreads) {
     const int r = e / CC;
     const int c = e % CC;
@@ -1250,20 +1366,21 @@ __device__ __forceinline__ void probs_and_ds(
       }
     }
     if (sP != nullptr) sP[r * ldp + c] = from_f32<T>(p);
-    sdS[r * ldp + c] = from_f32<T>(ds);
+    sdS[r * ldp + c] = from_f32<T>(ds * ds_mult);
   }
 }
 
-// Rows [row0, row0 + ROWS) of an accumulator (pitch lda) into a (nrows, d)
-// row-major matrix of T; rows past nrows are not stored.
+// Rows [row0, row0 + ROWS) of an accumulator (pitch lda) times mult into a
+// (nrows, d) row-major matrix of T; rows past nrows are not stored.
 template <typename T, int ROWS>
 __device__ __forceinline__ void store_tile(T* dst, const float* acc, int lda,
-                                           int row0, int nrows, int d) {
+                                           int row0, int nrows, int d,
+                                           float mult) {
   for (int i = threadIdx.x; i < ROWS * d; i += kBwdThreads) {
     const int r = i / d;
     const int c = i % d;
     if (row0 + r < nrows) {
-      dst[(size_t)(row0 + r) * d + c] = from_f32<T>(acc[r * lda + c]);
+      dst[(size_t)(row0 + r) * d + c] = from_f32<T>(acc[r * lda + c] * mult);
     }
   }
 }
@@ -1283,6 +1400,45 @@ nl_attn_bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
+}
+
+// The largest squared row norm of dO (rows_q rows) and of V (rows_k rows),
+// one warp per row, into bound[0] and bound[1] as float bits (atomicMax:
+// non-negative floats order as their bits). bound starts at zeros. f16 only.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+nl_attn_bwd_norms_kernel(const T* __restrict__ dout, const T* __restrict__ v,
+                         unsigned* __restrict__ bound, int rows_q, int rows_k,
+                         int d) {
+  const int row = blockIdx.x * kBwdWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows_q + rows_k) return;
+  const bool is_q = row < rows_q;
+  const T* a = is_q ? dout + (size_t)row * d : v + (size_t)(row - rows_q) * d;
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float x = to_f32(a[c]);
+    s = fmaf(x, x, s);
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) atomicMax(bound + (is_q ? 0 : 1), __float_as_uint(s));
+}
+
+// Launches nl_attn_bwd_norms_kernel for f16; nothing for the other types.
+template <typename T>
+cudaError_t launch_norms(const void* dout, const void* v, unsigned* bound,
+                         int rows_q, int rows_k, int d, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, f16>::value) {
+    return cudaSuccess;
+  } else {
+    const int rows = rows_q + rows_k;
+    nl_attn_bwd_norms_kernel<T>
+        <<<(rows + kBwdWarps - 1) / kBwdWarps, kBwdThreads, 0, stream>>>(
+            static_cast<const T*>(dout), static_cast<const T*>(v), bound,
+            rows_q, rows_k, d);
+    return cudaGetLastError();
+  }
 }
 
 // Loads the statistics of query rows [q0, q0 + ROWS); zeros past Sq and
@@ -1305,7 +1461,8 @@ __global__ void __launch_bounds__(kBwdThreads)
 nl_attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
+                      const float* __restrict__ delta,
+                      const unsigned* __restrict__ bound, T* __restrict__ dk,
                       T* __restrict__ dv, int sq, int sk, int d, int softmax,
                       float scale) {
   using C = Cfg<T, DP, true>;
@@ -1334,6 +1491,7 @@ nl_attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float c2 = scale * 1.4426950408889634f;
   const float inv_sk = 1.f / (float)sk;
+  const float ds_mult = ds_scale<T>(bound, softmax, scale, inv_sk);
   for (int q0 = 0; q0 < sq; q0 += C::NS) {
     __syncthreads();  // the previous tile's products are done
     load_tile<T, DP, C::NS, C::LDT>(sQ, qb, q0, sq, d);
@@ -1346,7 +1504,8 @@ nl_attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                     sV, C::LDT);
     __syncthreads();
     probs_and_ds<T, C::NS, C::NA>(sS, sdP, C::LDS, sP, sdS, C::LDP, sLse, sD,
-                                  q0, sq, k0, sk, softmax, c2, scale, inv_sk);
+                                  q0, sq, k0, sk, softmax, c2, scale, inv_sk,
+                                  ds_mult);
     __syncthreads();
     mma_block<C::NA, DP, C::NS, true, false, true>(accV, C::LDA, sP, C::LDP,
                                                    sdO, C::LDT);
@@ -1354,8 +1513,9 @@ nl_attn_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                    sQ, C::LDT);
   }
   __syncthreads();
-  store_tile<T, C::NA>(dk + b * sk * d, accK, C::LDA, k0, sk, d);
-  store_tile<T, C::NA>(dv + b * sk * d, accV, C::LDA, k0, sk, d);
+  store_tile<T, C::NA>(dk + b * sk * d, accK, C::LDA, k0, sk, d,
+                       1.f / ds_mult);
+  store_tile<T, C::NA>(dv + b * sk * d, accV, C::LDA, k0, sk, d, 1.f);
 }
 
 // dQ of one query tile: every key tile streams past it.
@@ -1364,7 +1524,8 @@ __global__ void __launch_bounds__(kBwdThreads)
 nl_attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dq,
+                     const float* __restrict__ delta,
+                     const unsigned* __restrict__ bound, T* __restrict__ dq,
                      int sq, int sk, int d, int softmax, float scale) {
   using C = Cfg<T, DP, false>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1391,6 +1552,7 @@ nl_attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float c2 = scale * 1.4426950408889634f;
   const float inv_sk = 1.f / (float)sk;
+  const float ds_mult = ds_scale<T>(bound, softmax, scale, inv_sk);
   for (int k0 = 0; k0 < sk; k0 += C::NS) {
     __syncthreads();  // the previous tile's products are done
     load_tile<T, DP, C::NS, C::LDT>(sK, kb, k0, sk, d);
@@ -1403,20 +1565,21 @@ nl_attn_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     probs_and_ds<T, C::NA, C::NS>(sS, sdP, C::LDS, static_cast<T*>(nullptr),
                                   sdS, C::LDP, sLse, sD, q0, sq, k0, sk,
-                                  softmax, c2, scale, inv_sk);
+                                  softmax, c2, scale, inv_sk, ds_mult);
     __syncthreads();
     mma_block<C::NA, DP, C::NS, false, false, true>(accQ, C::LDA, sdS, C::LDP,
                                                     sK, C::LDT);
   }
   __syncthreads();
-  store_tile<T, C::NA>(dq + b * sq * d, accQ, C::LDA, q0, sq, d);
+  store_tile<T, C::NA>(dq + b * sq * d, accQ, C::LDA, q0, sq, d,
+                       1.f / ds_mult);
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int b, int sq,
-                   int sk, int d, int softmax, float scale,
+                   float* delta, unsigned* bound, void* dq, void* dk, void* dv,
+                   int b, int sq, int sk, int d, int softmax, float scale,
                    cudaStream_t stream) {
   using KV = Cfg<T, DP, true>;
   using Q = Cfg<T, DP, false>;
@@ -1424,6 +1587,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
+  {
+    cudaError_t err = launch_norms<T>(dout, v, bound, b * sq, b * sk, d, stream);
+    if (err != cudaSuccess) return err;
+  }
   if (softmax) {
     const int rows = b * sq;
     nl_attn_bwd_rowdot_kernel<T>
@@ -1438,7 +1605,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   nl_attn_bwd_kv_kernel<T, DP>
       <<<dim3((sk + KV::NA - 1) / KV::NA, b), kBwdThreads, KV::kBytes,
-         stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+         stream>>>(tq, tk, tv, tdo, lse, delta, bound, static_cast<T*>(dk),
                    static_cast<T*>(dv), sq, sk, d, softmax, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1448,7 +1615,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   nl_attn_bwd_q_kernel<T, DP>
       <<<dim3((sq + Q::NA - 1) / Q::NA, b), kBwdThreads, Q::kBytes, stream>>>(
-          tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), sq, sk, d,
+          tq, tk, tv, tdo, lse, delta, bound, static_cast<T*>(dq), sq, sk, d,
           softmax, scale);
   return cudaGetLastError();
 }
@@ -1456,23 +1623,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
-                     float* delta, void* dq, void* dk, void* dv, int b, int sq,
-                     int sk, int d, int softmax, float scale,
-                     cudaStream_t stream) {
+                     float* delta, unsigned* bound, void* dq, void* dk,
+                     void* dv, int b, int sq, int sk, int d, int softmax,
+                     float scale, cudaStream_t stream) {
   if (d <= 64) {
-    return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
-                         d, softmax, scale, stream);
+    return launch<T, 64>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv, b,
+                         sq, sk, d, softmax, scale, stream);
   }
   if (d <= 128) {
-    return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
-                          d, softmax, scale, stream);
+    return launch<T, 128>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv, b,
+                          sq, sk, d, softmax, scale, stream);
   }
   if (d <= 256) {
-    return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
-                          d, softmax, scale, stream);
+    return launch<T, 256>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv, b,
+                          sq, sk, d, softmax, scale, stream);
   }
-  return launch<T, 512>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk,
-                        d, softmax, scale, stream);
+  return launch<T, 512>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv, b,
+                        sq, sk, d, softmax, scale, stream);
 }
 
 }  // namespace bwd
@@ -1482,41 +1649,51 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 // / dq (b, sq, d), k / v / dk / dv (b, sk, d). lse: the forward's (b, sq)
 // float32 log-sum-exp, delta: (b, sq) float32 scratch; both are needed for
 // softmax and unused (may be null) for dot_product. kind: 0 softmax,
-// 1 dot_product. is_bf16: 1 bf16, 0 float32. Requires 8 <= d <= 512,
-// d % 8 == 0, sq >= 1, sk >= 1, 1 <= b <= 65535. Three launches on the
-// stream; returns a cudaError_t.
+// 1 dot_product. bound: two zero-filled 32-bit words of scratch for f16's
+// dS scale, unused (may be null) otherwise. dtype: 0 float32, 1 bf16, 2 f16.
+// Requires 8 <= d <= 512, d % 8 == 0, sq >= 1, sk >= 1, 1 <= b <= 65535.
+// Three launches on the stream (four in f16); returns a cudaError_t.
 extern "C" int nl_attn_bwd(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const float* lse,
                            float* delta, void* dq, void* dk, void* dv, int b,
                            int sq, int sk, int d, int kind, float scale,
-                           int is_bf16, void* stream) {
+                           unsigned* bound, int dtype, void* stream) {
   if (b < 1 || b > 65535 || sq < 1 || sk < 1 || d < 8 || d > 512 ||
       d % 8 != 0 || (kind != 0 && kind != 1) ||
-      (kind == 0 && (lse == nullptr || delta == nullptr))) {
+      (kind == 0 && (lse == nullptr || delta == nullptr)) ||
+      (dtype == kDtypeF16 && bound == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int softmax = kind == 0;
-  return (int)(is_bf16
-                   ? bwd::launch_d<bf16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                         dv, b, sq, sk, d, softmax, scale, s)
-                   : bwd::launch_d<float>(q, k, v, o, dout, lse, delta, dq,
-                                          dk, dv, b, sq, sk, d, softmax, scale,
-                                          s));
+  switch (dtype) {
+    case kDtypeF32:
+      return (int)bwd::launch_d<float>(q, k, v, o, dout, lse, delta, bound,
+                                       dq, dk, dv, b, sq, sk, d, softmax,
+                                       scale, s);
+    case kDtypeBf16:
+      return (int)bwd::launch_d<bf16>(q, k, v, o, dout, lse, delta, bound, dq,
+                                      dk, dv, b, sq, sk, d, softmax, scale, s);
+    case kDtypeF16:
+      return (int)bwd::launch_d<f16>(q, k, v, o, dout, lse, delta, bound, dq,
+                                     dk, dv, b, sq, sk, d, softmax, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ===========================================================================
 // nl_attn_bwd_wgmma: the same gradient as nl_attn_bwd, redesigned for
-// Hopper's warpgroup tensor-core instruction. bf16 only, d in {64, 128, 256,
-// 512}; nl_attn_bwd stays for float32 and every other width.
+// Hopper's warpgroup tensor-core instruction. bf16 and f16, d in {64, 128,
+// 256, 512}; nl_attn_bwd stays for float32 and every other width.
 //
 // Replaces, as nl_attn_bwd does, jax.grad of the einsum version
 // (vidsitu_tpu/ops/attention.py:121 _einsum_attention; the TPU package has no
 // backward kernel). Same inputs, outputs and arithmetic: P = 2^(S scale
 // log2 e - lse2) from the forward's statistics (S / Sk for dot_product),
 // D = rowsum(dO o O), dS = scale P o (dP - D) (dP / Sk), P and dS rounded
-// to bf16 before the products that take them, float32 logits and
-// accumulators, dQ / dK / dV in bf16.
+// to the input type before the products that take them (dS scaled by
+// bwd::ds_scale's power of two in f16, dK and dQ unscaled after the sums),
+// float32 logits and accumulators, dQ / dK / dV in the input type.
 //
 // What bounds it on an H100: five Sq x Sk x d products, 5.0e11 operations
 // at the I3D-NL stage-3 shape for 80 clips (Sq 3136, Sk 784, d 256) against
@@ -1526,7 +1703,8 @@ extern "C" int nl_attn_bwd(const void* q, const void* k, const void* v,
 // run.
 //
 // What the design does about it:
-//  * every product is wgmma.mma_async (m64nNk16, bf16 in, float32 out) with
+//  * every product is wgmma.mma_async (m64nNk16, bf16 or f16 in, float32
+//    out) with
 //    its accumulator in registers; no accumulator, logit or probability
 //    passes through shared memory except one hand-over, below;
 //  * two passes, as nl_attn_bwd, so that every sum runs in a fixed order
@@ -1539,7 +1717,7 @@ extern "C" int nl_attn_bwd(const void* q, const void* k, const void* v,
 //    dV += P^T dO; warpgroup 1 computes dP^T = V dO^T and keeps
 //    dK += dS^T Q. S^T and dP^T are in the accumulator layout with keys as
 //    rows, which is the A layout of the next product: P^T and dS^T are
-//    packed to bf16 in place and fed from registers; Q and dO serve twice,
+//    packed to 16 bits in place and fed from registers; Q and dO serve twice,
 //    as K-major B operands for S^T / dP^T and as MN-major B operands (the
 //    instruction's transpose flag) for dV / dK. Warpgroup 1 needs P for dS:
 //    warpgroup 0 writes its float32 P^T to a shared tile in fragment order
@@ -1569,7 +1747,7 @@ extern "C" int nl_attn_bwd(const void* q, const void* k, const void* v,
 //    queries a streamed tile in the dK / dV pass (16 at d = 512, where K and
 //    V alone take 128 KB); 64 keys a tile in the dQ pass up to d = 128, 32
 //    at d = 256 (Q and dO of 128 rows take 128 KB), 16 at d = 512;
-//  * the epilogues stage bf16 rows in the dead tiles and store 16 bytes a
+//  * the epilogues stage 16-bit rows in the dead tiles and store 16 bytes a
 //    thread; rows past Sq / Sk are not stored.
 // Left for later: overlapping one tile's softmax with the next tile's
 // products (a second S accumulator, or TMA with a producer warp), and S
@@ -1580,50 +1758,66 @@ extern "C" int nl_attn_bwd(const void* q, const void* k, const void* v,
 // wg::MmaSS at the widths the forward does not use: 64 and 16.
 namespace wg {
 
-template <>
-struct MmaSS<64> {
+template <typename T>
+struct MmaSS<64, T> {
   static __device__ __forceinline__ void run(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      " %0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define NL_WGMMA(TY)                                             \
+  asm volatile(                                                  \
+      "{\n"                                                      \
+      ".reg .pred p;\n"                                          \
+      "setp.ne.b32 p, %34, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "\
+      "{"                                                        \
+      " %0, %1, %2, %3, %4, %5, %6, %7, "                        \
+      " %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+      " %16, %17, %18, %19, %20, %21, %22, %23, "                \
+      " %24, %25, %26, %27, %28, %29, %30, %31 "                 \
+      "}, %32, %33, p, 1, 1, 0, 0;\n"                            \
+      "}\n"                                                      \
+      :                                                          \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
       : "l"(a), "l"(b), "r"(scale_d));
+    if constexpr (std::is_same<T, f16>::value) {
+      NL_WGMMA("f16")
+    } else {
+      NL_WGMMA("bf16")
+    }
+#undef NL_WGMMA
   }
 };
 
-template <>
-struct MmaSS<16> {
+template <typename T>
+struct MmaSS<16, T> {
   static __device__ __forceinline__ void run(float (&d)[8], uint64_t a,
                                              uint64_t b, int scale_d) {
-    asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{ %0, %1, %2, %3, %4, %5, %6, %7 }, %8, %9, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define NL_WGMMA(TY)                                             \
+  asm volatile(                                                  \
+      "{\n"                                                      \
+      ".reg .pred p;\n"                                          \
+      "setp.ne.b32 p, %10, 0;\n"                                 \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "\
+      "{"                                                        \
+      " %0, %1, %2, %3, %4, %5, %6, %7 "                         \
+      "}, %8, %9, p, 1, 1, 0, 0;\n"                              \
+      "}\n"                                                      \
+      :                                                          \
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])             \
       : "l"(a), "l"(b), "r"(scale_d));
+    if constexpr (std::is_same<T, f16>::value) {
+      NL_WGMMA("f16")
+    } else {
+      NL_WGMMA("bf16")
+    }
+#undef NL_WGMMA
   }
 };
 
@@ -1687,32 +1881,32 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 // acc (+)= A B over the whole head width: A the 64 rows at shared address a
 // inside a swizzled (ROWS_A x D) tile, B the swizzled (N x D) tile at b, both
 // K-major (one wgmma for every 16 of d).
-template <int D, int ROWS_A, int N>
+template <typename T, int D, int ROWS_A, int N>
 __device__ __forceinline__ void mma_rows(float (&acc)[N / 2], uint32_t a,
                                          uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t ka = (kk >> 2) * 128 * ROWS_A + (kk & 3) * 32;
     const uint32_t kb = (kk >> 2) * 128 * N + (kk & 3) * 32;
-    wg::MmaSS<N>::run(acc, wg::smem_desc(a + ka, 16, 1024),
+    wg::MmaSS<N, T>::run(acc, wg::smem_desc(a + ka, 16, 1024),
                       wg::smem_desc(b + kb, 16, 1024), kk > 0);
   }
 }
 
 // acc += A B: A (64 x K) from registers, the accumulator-layout values x
-// packed to bf16 16 columns at a time; B the columns [col0, col0 + NC) of a
+// packed to T 16 columns at a time; B the columns [col0, col0 + NC) of a
 // swizzled (K x D) tile, MN-major.
-template <int NC, int K>
+template <typename T, int NC, int K>
 __device__ __forceinline__ void mma_regs(float (&acc)[NC / 2],
                                          const float (&x)[K / 2], uint32_t b,
                                          int col0) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t pa[4] = {wg::pack_bf16(x[8 * kk + 0], x[8 * kk + 1]),
-                            wg::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]),
-                            wg::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]),
-                            wg::pack_bf16(x[8 * kk + 6], x[8 * kk + 7])};
-    wg::MmaRS<NC>::run(acc, pa,
+    const uint32_t pa[4] = {wg::pack2<T>(x[8 * kk + 0], x[8 * kk + 1]),
+                            wg::pack2<T>(x[8 * kk + 2], x[8 * kk + 3]),
+                            wg::pack2<T>(x[8 * kk + 4], x[8 * kk + 5]),
+                            wg::pack2<T>(x[8 * kk + 6], x[8 * kk + 7])};
+    wg::MmaRS<NC, T>::run(acc, pa,
                        wg::smem_desc(b + (col0 / 64) * 128 * K + kk * 2048,
                                      128 * K, 1024),
                        1);
@@ -1724,8 +1918,8 @@ __device__ __forceinline__ void mma_regs(float (&acc)[NC / 2],
 // cp.async group.
 template <int D>
 __device__ __forceinline__ void load_query_tile(uint32_t slot, float* stat,
-                                                const bf16* qb,
-                                                const bf16* dob,
+                                                const void* qb,
+                                                const void* dob,
                                                 const float* lseb,
                                                 const float* deltab, int q0,
                                                 int sq) {
@@ -1745,8 +1939,8 @@ __device__ __forceinline__ void load_query_tile(uint32_t slot, float* stat,
 
 // The K and V tiles of keys [key0, key0 + BK), as one cp.async group.
 template <int D>
-__device__ __forceinline__ void load_key_tile(uint32_t slot, const bf16* kb,
-                                              const bf16* vb, int key0,
+__device__ __forceinline__ void load_key_tile(uint32_t slot, const void* kb,
+                                              const void* vb, int key0,
                                               int sk) {
   constexpr int BK = Cfg<D>::BK;
   wg::load_tile_async<BK, D>(slot, kb, key0, sk);
@@ -1756,15 +1950,16 @@ __device__ __forceinline__ void load_key_tile(uint32_t slot, const bf16* kb,
 
 // dK and dV of 64 keys and NC columns (blockIdx.y picks them): every query
 // tile streams past. Warpgroup 0 keeps dV, warpgroup 1 dK.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ dout,
+nl_attn_bwd_wgmma_kv_kernel(const T* __restrict__ q,
+                            const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            const unsigned* __restrict__ bound,
+                            T* __restrict__ dk, T* __restrict__ dv,
                             int sq, int sk, int softmax, float scale) {
   using C = Cfg<D>;
   constexpr int BQ = C::BQ;
@@ -1787,8 +1982,8 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
   const int k0 = blockIdx.x * kBwdRows;
   const int col0 = blockIdx.y * NC;
   const size_t b = blockIdx.z;
-  const bf16* qb = q + b * sq * D;
-  const bf16* dob = dout + b * sq * D;
+  const T* qb = q + b * sq * D;
+  const T* dob = dout + b * sq * D;
   const float* lseb = softmax ? lse + b * sq : nullptr;
   const float* deltab = softmax ? delta + b * sq : nullptr;
 
@@ -1801,6 +1996,7 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
   for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
   const float c2 = scale * 1.4426950408889634f;
   const float inv_sk = 1.f / (float)sk;
+  const float ds_mult = bwd::ds_scale<T>(bound, softmax, scale, inv_sk);
   // the first product's operands, and the second's B
   const uint32_t sA = group == 0 ? sK : sV;
   const uint32_t bOff1 = group == 0 ? 0 : C::kKvTile;  // Q or dO
@@ -1819,7 +2015,7 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
     // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1), 64 keys x BQ
     float s[BQ / 2];
     wg::wgmma_fence();
-    mma_rows<D, kBwdRows, BQ>(s, sA, slot + bOff1);
+    mma_rows<T, D, kBwdRows, BQ>(s, sA, slot + bOff1);
     wg::wgmma_commit();
     if (more) {
       const int nt = (t + 1) % kBwdStages;
@@ -1871,7 +2067,7 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
             float ds = softmax
                 ? scale * sHand[i * 128 + tid] * (s[i] - (e ? d2.y : d2.x))
                 : s[i] * inv_sk;
-            s[i] = past ? 0.f : ds;
+            s[i] = past ? 0.f : ds * ds_mult;
           }
         }
       }
@@ -1880,15 +2076,17 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
     // dV += P^T dO (group 0) or dK += dS^T Q (group 1)
     wg::fence_regs(acc);
     wg::wgmma_fence();
-    mma_regs<NC, BQ>(acc, s, slot + bOff2, col0);
+    mma_regs<T, NC, BQ>(acc, s, slot + bOff2, col0);
     wg::wgmma_commit();
     wg::wgmma_wait_all();
     wg::fence_regs(acc);
   }
 
-  // Epilogue: bf16 rows of dV (group 0) and dK (group 1) staged in the dead
-  // tiles, 16 bytes a thread to device memory; rows past Sk are not stored.
+  // Epilogue: T rows of dV (group 0) and dK (group 1, times 1 / ds_mult)
+  // staged in the dead tiles, 16 bytes a thread to device memory; rows past
+  // Sk are not stored.
   __syncthreads();
+  const float out_mult = group == 0 ? 1.f : 1.f / ds_mult;
   unsigned char* stage = smem + group * kBwdRows * C::LDKV;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1896,7 +2094,8 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < NC / 8; ++j) {
       *reinterpret_cast<uint32_t*>(row + (8 * j + 2 * quad) * 2) =
-          wg::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          wg::pack2<T>(acc[4 * j + 2 * h] * out_mult,
+                       acc[4 * j + 2 * h + 1] * out_mult);
     }
   }
   __syncthreads();
@@ -1906,7 +2105,7 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
     const int r = (i / CPR) % kBwdRows;
     const int c = i % CPR;
     if (k0 + r < sk) {
-      bf16* dst = (g == 0 ? dv : dk) + (b * sk + k0 + r) * D + col0 + c * 8;
+      T* dst = (g == 0 ? dv : dk) + (b * sk + k0 + r) * D + col0 + c * 8;
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(
           smem + (size_t)(g * kBwdRows + r) * C::LDKV + c * 16);
     }
@@ -1916,15 +2115,16 @@ nl_attn_bwd_wgmma_kv_kernel(const bf16* __restrict__ q,
 // dQ of QROWS query rows: every key tile streams past. Up to d = 256 each
 // warpgroup owns 64 of the rows and all columns; at d = 512 both own the
 // same 64 rows and 256 columns each.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
-                           const bf16* __restrict__ dout,
+nl_attn_bwd_wgmma_q_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dq, int sq, int sk, int softmax,
+                           const unsigned* __restrict__ bound,
+                           T* __restrict__ dq, int sq, int sk, int softmax,
                            float scale) {
   using C = Cfg<D>;
   constexpr int BK = C::BK;
@@ -1945,8 +2145,8 @@ nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
   const int grow = C::kWide ? 0 : kBwdRows * group;  // group's rows
   const int col0 = C::kWide ? NO * group : 0;       // group's columns
   const size_t b = blockIdx.y;
-  const bf16* kb = k + b * sk * D;
-  const bf16* vb = v + b * sk * D;
+  const T* kb = k + b * sk * D;
+  const T* vb = v + b * sk * D;
   // a warpgroup whose rows all lie past Sq loads its share and computes nothing
   const bool active = q0 + grow < sq;
 
@@ -1968,6 +2168,7 @@ nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
   for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
   const float c2 = scale * 1.4426950408889634f;
   const float inv_sk = 1.f / (float)sk;
+  const float ds_mult = bwd::ds_scale<T>(bound, softmax, scale, inv_sk);
 
   const int n_tiles = (sk + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
@@ -1986,8 +2187,8 @@ nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
     // S = Q K^T and dP = dO V^T, 64 rows x BK keys each
     float s[BK / 2], dp[BK / 2];
     wg::wgmma_fence();
-    mma_rows<D, C::QROWS, BK>(s, sQ + grow * 128, slot);
-    mma_rows<D, C::QROWS, BK>(dp, sdO + grow * 128, slot + C::kQTile);
+    mma_rows<T, D, C::QROWS, BK>(s, sQ + grow * 128, slot);
+    mma_rows<T, D, C::QROWS, BK>(dp, sdO + grow * 128, slot + C::kQTile);
     wg::wgmma_commit();
     if (more) load_key_tile<D>(next, kb, vb, key0 + BK, sk);
     wg::wgmma_wait_all();
@@ -2007,7 +2208,7 @@ nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
           const float ds = softmax
               ? scale * wg::fast_exp2(s[i] * c2 - lse_r[h]) * (dp[i] - d_r[h])
               : dp[i] * inv_sk;
-          dp[i] = past ? 0.f : ds;
+          dp[i] = past ? 0.f : ds * ds_mult;
         }
       }
     }
@@ -2015,14 +2216,16 @@ nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
     // dQ += dS K: K as the MN-major B operand, this group's columns
     wg::fence_regs(acc);
     wg::wgmma_fence();
-    mma_regs<NO, BK>(acc, dp, slot, col0);
+    mma_regs<T, NO, BK>(acc, dp, slot, col0);
     wg::wgmma_commit();
     wg::wgmma_wait_all();
     wg::fence_regs(acc);
   }
 
-  // Epilogue: bf16 rows staged in the dead Q / dO tiles, 16-byte stores.
+  // Epilogue: T rows (times 1 / ds_mult) staged in the dead Q / dO tiles,
+  // 16-byte stores.
   __syncthreads();
+  const float out_mult = 1.f / ds_mult;
   if (active) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -2031,7 +2234,8 @@ nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < NO / 8; ++j) {
         *reinterpret_cast<uint32_t*>(row + (col0 + 8 * j + 2 * quad) * 2) =
-            wg::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+            wg::pack2<T>(acc[4 * j + 2 * h] * out_mult,
+                         acc[4 * j + 2 * h + 1] * out_mult);
       }
     }
   }
@@ -2047,78 +2251,102 @@ nl_attn_bwd_wgmma_q_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int b, int sq,
-                   int sk, int softmax, float scale, cudaStream_t stream) {
+                   float* delta, unsigned* bound, void* dq, void* dk, void* dv,
+                   int b, int sq, int sk, int softmax, float scale,
+                   cudaStream_t stream) {
   using C = Cfg<D>;
-  const bf16* tq = static_cast<const bf16*>(q);
-  const bf16* tk = static_cast<const bf16*>(k);
-  const bf16* tv = static_cast<const bf16*>(v);
-  const bf16* tdo = static_cast<const bf16*>(dout);
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  cudaError_t err =
+      bwd::launch_norms<T>(dout, v, bound, b * sq, b * sk, D, stream);
+  if (err != cudaSuccess) return err;
   if (softmax) {
     const int rows = b * sq;
-    bwd::nl_attn_bwd_rowdot_kernel<bf16>
+    bwd::nl_attn_bwd_rowdot_kernel<T>
         <<<(rows + bwd::kBwdWarps - 1) / bwd::kBwdWarps, bwd::kBwdThreads, 0,
-           stream>>>(static_cast<const bf16*>(o), tdo, delta, rows, D);
-    cudaError_t err = cudaGetLastError();
+           stream>>>(static_cast<const T*>(o), tdo, delta, rows, D);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      nl_attn_bwd_wgmma_kv_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kKvBytes);
+  err = cudaFuncSetAttribute(nl_attn_bwd_wgmma_kv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kKvBytes);
   if (err != cudaSuccess) return err;
-  nl_attn_bwd_wgmma_kv_kernel<D>
+  nl_attn_bwd_wgmma_kv_kernel<T, D>
       <<<dim3((sk + kBwdRows - 1) / kBwdRows, D / C::NC, b), kThreads,
-         C::kKvBytes, stream>>>(tq, tk, tv, tdo, lse, delta,
-                                static_cast<bf16*>(dk),
-                                static_cast<bf16*>(dv), sq, sk, softmax,
-                                scale);
+         C::kKvBytes, stream>>>(tq, tk, tv, tdo, lse, delta, bound,
+                                static_cast<T*>(dk), static_cast<T*>(dv), sq,
+                                sk, softmax, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(nl_attn_bwd_wgmma_q_kernel<D>,
+  err = cudaFuncSetAttribute(nl_attn_bwd_wgmma_q_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kQBytes);
   if (err != cudaSuccess) return err;
-  nl_attn_bwd_wgmma_q_kernel<D>
+  nl_attn_bwd_wgmma_q_kernel<T, D>
       <<<dim3((sq + C::QROWS - 1) / C::QROWS, b), kThreads, C::kQBytes,
-         stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), sq,
-                   sk, softmax, scale);
+         stream>>>(tq, tk, tv, tdo, lse, delta, bound, static_cast<T*>(dq),
+                   sq, sk, softmax, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, unsigned* bound, void* dq, void* dk,
+                     void* dv, int b, int sq, int sk, int d, int softmax,
+                     float scale, cudaStream_t s) {
+  switch (d) {
+    case 64:
+      return launch<T, 64>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv, b,
+                           sq, sk, softmax, scale, s);
+    case 128:
+      return launch<T, 128>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv,
+                            b, sq, sk, softmax, scale, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv,
+                            b, sq, sk, softmax, scale, s);
+    case 512:
+      return launch<T, 512>(q, k, v, o, dout, lse, delta, bound, dq, dk, dv,
+                            b, sq, sk, softmax, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace wgb
 
-// The wgmma backward: bf16 only. Pointers and shapes as nl_attn_bwd's (no
-// is_bf16). Requires d in {64, 128, 256, 512}, sq >= 1, sk >= 1,
-// 1 <= b <= 65535; anything else is cudaErrorInvalidValue. Three launches on
-// the stream (D for softmax, the dK / dV pass, the dQ pass); returns a
+// The wgmma backward: bf16 and f16. Pointers, shapes, bound and dtype as
+// nl_attn_bwd's (dtype 1 bf16, 2 f16). Requires d in {64, 128, 256, 512},
+// sq >= 1, sk >= 1, 1 <= b <= 65535; anything else is
+// cudaErrorInvalidValue. Three launches on the stream (D for softmax, the
+// dK / dV pass, the dQ pass; and the norms first in f16); returns a
 // cudaError_t.
 extern "C" int nl_attn_bwd_wgmma(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const float* lse, float* delta, void* dq,
                                  void* dk, void* dv, int b, int sq, int sk,
-                                 int d, int kind, float scale, void* stream) {
+                                 int d, int kind, float scale, unsigned* bound,
+                                 int dtype, void* stream) {
   if (b < 1 || b > 65535 || sq < 1 || sk < 1 || (kind != 0 && kind != 1) ||
-      (kind == 0 && (lse == nullptr || delta == nullptr))) {
+      (kind == 0 && (lse == nullptr || delta == nullptr)) ||
+      (dtype == kDtypeF16 && bound == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int softmax = kind == 0;
-  switch (d) {
-    case 64:
-      return (int)wgb::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
-                                  sq, sk, softmax, scale, s);
-    case 128:
-      return (int)wgb::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   b, sq, sk, softmax, scale, s);
-    case 256:
-      return (int)wgb::launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   b, sq, sk, softmax, scale, s);
-    case 512:
-      return (int)wgb::launch<512>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   b, sq, sk, softmax, scale, s);
+  switch (dtype) {
+    case kDtypeBf16:
+      return (int)wgb::launch_d<bf16>(q, k, v, o, dout, lse, delta, bound, dq,
+                                      dk, dv, b, sq, sk, d, softmax, scale, s);
+    case kDtypeF16:
+      return (int)wgb::launch_d<f16>(q, k, v, o, dout, lse, delta, bound, dq,
+                                     dk, dv, b, sq, sk, d, softmax, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

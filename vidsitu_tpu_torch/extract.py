@@ -28,6 +28,7 @@ import torch
 from .convert.from_flax import flax_to_state_dict, seeded_variables
 from .data.dataset import VsituDS
 from .data.loader import DataLoader, fold_frame_events
+from .models.common import take_dtypes
 from .models.vb_models import build_feat_extractor
 from .parallel.collectives import get_rank, get_world_size
 
@@ -134,6 +135,8 @@ def extract_features(
     model = build_feat_extractor(cfg)
     if state_dict is None:
         state_dict = flax_to_state_dict(seeded_variables(model, seed=0))
+    else:  # given weights keep their dtype, as the JAX package's do
+        take_dtypes(model, state_dict)
     model.load_state_dict(state_dict, strict=True)
     model.to(device=dev, memory_format=torch.channels_last_3d)
 

@@ -139,10 +139,50 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
 def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
            with_bias: bool = True) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: input, kernel and bias cast to the compute
-    dtype, then the product. ``with_bias=False`` leaves the bias to the
+    dtype, whatever the parameters' own (``param_dtype``), then the
+    product. ``with_bias=False`` leaves the bias to the
     caller (a row-parallel product adds it after its all-reduce)."""
     bias = None if lin.bias is None or not with_bias else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+@torch.no_grad()
+def cast_params(model: nn.Module, param_dtype: torch.dtype) -> nn.Module:
+    """flax's ``param_dtype`` on a built model: every floating parameter in
+    ``param_dtype``; the buffers (BatchNorm running statistics, position
+    tables) keep their own dtype, as flax keeps ``batch_stats`` in float32.
+    The parameters stay the same objects. The products still run in each
+    module's compute dtype (``dtype``): :func:`linear`, the convolutions
+    and the embeddings cast a parameter to it at use, the normalisations
+    promote it to float32, as flax's ``promote_dtype`` does. Returns
+    ``model``."""
+    for p in model.parameters():
+        if p.is_floating_point() and p.dtype != param_dtype:
+            p.data = p.data.to(param_dtype)
+    return model
+
+
+@torch.no_grad()
+def take_dtypes(model: nn.Module, state) -> nn.Module:
+    """Give each parameter of ``model`` the dtype of its tensor in
+    ``state``, a state dict about to be loaded: flax applies
+    ``param_dtype`` when it initialises, and variables loaded into the JAX
+    package (a restored checkpoint, pretrained weights, given weights) keep
+    their arrays' dtype, so a float32 file loaded into a bfloat16 model
+    stays float32 there. An fsdp-sharded parameter cannot change dtype in
+    place: it raises. Returns ``model``."""
+    from torch.distributed.tensor import DTensor
+
+    for name, p in model.named_parameters():
+        v = state.get(name)
+        if v is None or v.dtype == p.dtype or not v.is_floating_point():
+            continue
+        if isinstance(p, DTensor):
+            raise NotImplementedError(
+                f"loading {name} saved in {v.dtype} into an fsdp-sharded "
+                f"{p.dtype} model")
+        p.data = p.data.to(v.dtype)
+    return model
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:

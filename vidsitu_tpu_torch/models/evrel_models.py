@@ -116,11 +116,13 @@ class EvrelModel(nn.Module):
 def build_evrel_model(cfg, comm) -> EvrelModel:
     """The evrel model of ``cfg`` (evrel_models.py:138-158): roberta dims
     from ``cfg.rob_mdl``, the vocabulary and pad id of the RoBERTa
-    tokenizer, float32 parameters, products in ``train.dtype``."""
+    tokenizer, parameters in ``train.param_dtype``, products in
+    ``train.dtype``."""
+    from .common import cast_params
     from .selector import compute_dtypes
     from .srl_models import get_head_dim
 
-    dtype, _ = compute_dtypes(cfg)
+    dtype, param_dtype = compute_dtypes(cfg)
     tok = comm.rob_hf_tok
     rc = cfg.rob_mdl
     # HF RoBERTa offsets positions by pad_id (1 in the published
@@ -132,4 +134,5 @@ def build_evrel_model(cfg, comm) -> EvrelModel:
         n_heads=rc.n_heads, ffn_dim=rc.ffn_dim, max_pos=max_pos,
         pad_id=tok.pad_token_id, dtype=dtype)
     feat_dim = (0 if cfg.mdl.mdl_name == "rob_evrel" else get_head_dim(cfg))
-    return EvrelModel(cfg.mdl.mdl_name, rob_cfg, feat_dim)
+    return cast_params(EvrelModel(cfg.mdl.mdl_name, rob_cfg, feat_dim),
+                       param_dtype)

@@ -97,8 +97,9 @@ class RelEncoderLayer(nn.Module):
         self.ln_ff = nn.LayerNorm(d_model, eps=1e-5)
 
     def _ln(self, ln, x):
-        return F.layer_norm(x.float(), ln.normalized_shape, ln.weight,
-                            ln.bias, ln.eps).to(self.dtype)
+        x = x.float()
+        return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype),
+                            ln.bias.to(x.dtype), ln.eps).to(self.dtype)
 
     def forward(self, x, pe=None, kv=None):
         """``kv``: optional (key, value) pair for cross-attention (the

@@ -20,8 +20,9 @@ def compute_dtypes(cfg):
 
 def build_model(cfg, comm):
     """The model for ``cfg`` (selector.py:26-73): the ``vb`` verb model, a
-    ``vb_arg`` model or an ``evrel`` model. Parameters are made in float32,
-    the products run in ``train.dtype``."""
+    ``vb_arg`` model or an ``evrel`` model. Parameters are held in
+    ``train.param_dtype`` (BatchNorm statistics in float32), the products
+    run in ``train.dtype``."""
     task = cfg.task_type
     if task == "vb":
         from .vb_models import build_vb_model
@@ -40,14 +41,15 @@ def build_model(cfg, comm):
 def build_srl_model(cfg, vocab_size: int, pad_id: int):
     """The ``vb_arg`` model ``mdl.mdl_name`` over a vocabulary of
     ``vocab_size`` tokens (the tokenizer's, or a larger one to time the
-    output layer at GPT-2's size)."""
+    output layer at GPT-2's size), its parameters in ``train.param_dtype``."""
+    from .common import cast_params
     from .srl_models import SRL_MDL_NAMES, FEAT_MDLS, SRLModel, get_head_dim
     from .transformer import TxConfig
 
     mdl_name = cfg.mdl.mdl_name
     if mdl_name not in SRL_MDL_NAMES:
         raise ValueError(f"unknown vb_arg model {mdl_name}")
-    dtype, _ = compute_dtypes(cfg)
+    dtype, param_dtype = compute_dtypes(cfg)
     if mdl_name == "new_gpt2_only":
         # GPT-2 architecture (pre-norm, gelu, learned positions, tied in/out
         # embeddings), dims from cfg.gpt2_mdl
@@ -65,11 +67,11 @@ def build_srl_model(cfg, vocab_size: int, pad_id: int):
                                     side="decoder", dtype=dtype)
     enc_cfg = TxConfig.from_cfg(cfg.tx_dec, vocab_size, pad_id,
                                 side="encoder", dtype=dtype)
-    return SRLModel(
+    return cast_params(SRLModel(
         mdl_name=mdl_name, dec_cfg=dec_cfg, enc_cfg=enc_cfg,
         tx_enc_type=cfg.mdl.tx_enc_type,
         feat_dim=get_head_dim(cfg) if mdl_name in FEAT_MDLS else 0,
-    )
+    ), param_dtype)
 
 
 def init_model_variables(model, seed: int = 0):

@@ -3,9 +3,10 @@ vidsitu_tpu/models/transformer.py).
 
 Modules carry the flax module names (``layers_0.self_attn.q_proj``), so
 ``convert.from_flax.flax_to_state_dict`` maps the JAX package's variables
-onto ``state_dict()``. Parameters keep their own dtype (float32); every
-product runs in ``TxConfig.dtype`` (bfloat16 on the GPU), softmax and
-LayerNorm statistics in float32, as flax's ``dtype``/``param_dtype`` do.
+onto ``state_dict()``. Parameters keep their own dtype
+(``train.param_dtype``, ``common.cast_params``); every product runs in
+``TxConfig.dtype`` (bfloat16 on the GPU), softmax and LayerNorm statistics
+in float32, as flax's ``dtype``/``param_dtype`` do.
 
 Attention stays plain matmuls, as the JAX package computes it outside any
 Pallas kernel, with its numerics (``transformer.py:132-141``): q divided by

@@ -4,7 +4,8 @@ feature-extraction model (vidsitu_code/feat_extractor.py:77-112).
 Port of vidsitu_tpu/models/vb_models.py. ``forward`` returns the verb
 logits, and the verb loss when the batch carries ``label_tensor``; the
 module's mode is flax's ``deterministic`` flag (``train()``: BatchNorm on
-batch statistics). Parameters are float32, products run in ``train.dtype``.
+batch statistics). Parameters are held in ``train.param_dtype`` (BatchNorm
+statistics in float32), products run in ``train.dtype``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from .common import MLP
+from .common import MLP, cast_params
 from .selector import compute_dtypes
 from .srl_models import masked_cross_entropy
 from .video_backbone import (
@@ -113,25 +114,22 @@ class VbVideoModel(nn.Module):
 
 def _build(cfg, num_classes: int) -> VbVideoModel:
     dtype, param_dtype = compute_dtypes(cfg)
-    if param_dtype != torch.float32:
-        raise NotImplementedError(
-            f"train.param_dtype {cfg.train.param_dtype}: the port keeps "
-            "float32 parameters")
     vid_cfg = VideoCfg.from_cfg(
         cfg.vid_mdl, dtype=dtype, remat=cfg.train.remat,
         remat_stages=cfg.train.remat_stages,
         bn_f32_stats=cfg.train.bn_f32_stats)
-    return VbVideoModel(vid_cfg, num_classes=num_classes).eval()
+    return cast_params(VbVideoModel(vid_cfg, num_classes=num_classes),
+                       param_dtype).eval()
 
 
 def build_vb_model(cfg, comm) -> VbVideoModel:
-    """SFBase with its verb head, in eval mode: float32 parameters, products
-    in ``train.dtype``; ``train.remat`` / ``remat_stages`` /
-    ``bn_f32_stats`` as the JAX package reads them."""
+    """SFBase with its verb head, in eval mode: parameters in
+    ``train.param_dtype``, products in ``train.dtype``; ``train.remat`` /
+    ``remat_stages`` / ``bn_f32_stats`` as the JAX package reads them."""
     return _build(cfg, len(comm.vb_id_vocab))
 
 
 def build_feat_extractor(cfg) -> VbVideoModel:
-    """The feature extractor, in eval mode: float32 parameters, products in
-    ``train.dtype``."""
+    """The feature extractor, in eval mode: parameters in
+    ``train.param_dtype``, products in ``train.dtype``."""
     return _build(cfg, 0)

@@ -11,9 +11,12 @@ SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
     variance included (:class:`BatchNorm3d`). Under a process group of
     several ranks the batch statistics are the global batch's, as in the JAX
     package's one program over the global batch.
-  * Parameters stay in their own dtype (float32) and products run in the
-    compute dtype: each conv casts its weight to its input's dtype, as
-    flax's ``dtype`` / ``param_dtype`` split does.
+  * Parameters stay in their own dtype (``train.param_dtype``, applied by
+    ``common.cast_params``) and products run in the compute dtype: each
+    conv casts its weight to its input's dtype, as flax's ``dtype`` /
+    ``param_dtype`` split does; BatchNorm takes its scale and bias in
+    float32 (flax promotes them to its float32 statistics) and keeps its
+    running statistics in float32.
   * ``remat`` / ``remat_stages`` checkpoint the bottlenecks (and, for
     ``stem``, the stems) with ``torch.utils.checkpoint``; the recomputation
     in the backward does not update the running statistics a second time.
@@ -217,10 +220,17 @@ class BatchNorm3d(nn.BatchNorm3d):
         self.zero_init = zero_init
         self.f32_stats = f32_stats
 
+    def _affine(self):
+        """Scale and bias promoted to at least float32, as flax's
+        ``_normalize`` promotes a ``param_dtype`` scale to its statistics'
+        dtype (no copy for float32 or float64 parameters)."""
+        acc = torch.promote_types(self.weight.dtype, torch.float32)
+        return self.weight.to(acc), self.bias.to(acc)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+                                *self._affine(), False, 0.0, self.eps)
         update = not getattr(_REMAT, "active", False)
         if data_world_size() > 1:
             return self._global_stats(x, update)
@@ -231,7 +241,7 @@ class BatchNorm3d(nn.BatchNorm3d):
         # variance's part rescaled from unbiased to biased
         n = x.numel() // x.shape[1]
         mean, var = self.running_mean.clone(), self.running_var.clone()
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+        y = F.batch_norm(x, mean, var, *self._affine(), True,
                          self.momentum, self.eps)
         if update:
             with torch.no_grad():

@@ -22,10 +22,13 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
+# -split-compile=0: the device code's optimisation and ptxas run on every
+# core (the attention source's bf16 and f16 instantiations: 21 s instead of
+# 37-53 s in chip_smoke.py's phase 1 on an 8-core host with an H100)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "-split-compile=0",
 )
 
 
@@ -78,13 +81,15 @@ def load_nonlocal_attn() -> ctypes.CDLL:
     backward entries), built on first call."""
     lib = ctypes.CDLL(str(build("nonlocal_attn")))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    shared = [ptr] * 5 + [i32] * 5 + [ctypes.c_float]  # q k v o lse ...
-    lib.nl_attn_fwd.argtypes = shared + [i32, ptr]  # is_bf16, stream
-    lib.nl_attn_fwd_wgmma.argtypes = shared + [ptr]
-    # q k v o dout lse delta dq dk dv, b sq sk d kind, scale
-    bwd = [ptr] * 10 + [i32] * 5 + [ctypes.c_float]
-    lib.nl_attn_bwd.argtypes = bwd + [i32, ptr]  # is_bf16, stream
-    lib.nl_attn_bwd_wgmma.argtypes = bwd + [ptr]
+    # q k v o lse, b sq sk d kind, scale, dtype code, stream
+    fwd = [ptr] * 5 + [i32] * 5 + [ctypes.c_float, i32, ptr]
+    lib.nl_attn_fwd.argtypes = fwd
+    lib.nl_attn_fwd_wgmma.argtypes = fwd
+    # q k v o dout lse delta dq dk dv, b sq sk d kind, scale, bound (float16
+    # scratch), dtype code, stream
+    bwd = [ptr] * 10 + [i32] * 5 + [ctypes.c_float, ptr, i32, ptr]
+    lib.nl_attn_bwd.argtypes = bwd
+    lib.nl_attn_bwd_wgmma.argtypes = bwd
     for fn in (lib.nl_attn_fwd, lib.nl_attn_fwd_wgmma, lib.nl_attn_bwd,
                lib.nl_attn_bwd_wgmma):
         fn.restype = i32

@@ -6,16 +6,21 @@ stage 3 of I3D-NL has 3136 queries against 784 pooled keys. The kernels
 (csrc/nonlocal_attn.cu) keep the (queries x keys) logits on chip and write
 only the (queries x d) output. There are two, both written by hand:
 ``nl_attn_fwd_wgmma`` (Hopper's warpgroup tensor-core instruction, register
-accumulators, a K/V ring filled ahead of the products) takes bfloat16 at
-d in {64, 128, 256, 512}; ``nl_attn_fwd`` takes float32 and every other
-width. :func:`kernel_entry` says which, from dtype and d alone.
+accumulators, a K/V ring filled ahead of the products) takes bfloat16 and
+float16 at d in {64, 128, 256, 512}; ``nl_attn_fwd`` takes float32 and
+every other width. :func:`kernel_entry` says which, from dtype and d alone.
+Each entry is a template over its element type; the C entries take the
+dtype as a code (:data:`DTYPE_CODES`).
 
 Training adds two backward entries (the gradient: dQ, dK and dV from dO,
 recomputing the probabilities from each row's log-sum-exp, which either
 forward entry writes on request): ``nl_attn_bwd_wgmma`` (wgmma, register
-accumulators, a cp.async ring) takes bfloat16 at the same four widths,
-``nl_attn_bwd`` float32 and every other width; :func:`bwd_kernel_entry`
-routes as :func:`kernel_entry` does. :class:`NonLocalAttnFn` is the
+accumulators, a cp.async ring) takes bfloat16 and float16 at the same four
+widths, ``nl_attn_bwd`` float32 and every other width;
+:func:`bwd_kernel_entry` routes as :func:`kernel_entry` does. In float16 the
+backward scales dS by a power of two before rounding it (:func:`ds_scale`):
+float16's range ends at 2^-24, where a training step's small dS would round
+to zero. :class:`NonLocalAttnFn` is the
 ``torch.autograd.Function`` around the routed forward and the routed
 backward; :func:`nonlocal_attention` takes it on CUDA when an input requires
 grad.
@@ -23,7 +28,8 @@ grad.
 Numerics follow the JAX package's ``_einsum_attention``, which is what it
 runs at these shapes (and what ``jax.grad`` differentiates in training):
 float32 logits and softmax, ``dot_product`` divided by the true key count,
-the output cast to q's dtype.
+the output cast to q's dtype, for float32, bfloat16 and float16 inputs
+alike.
 """
 
 from __future__ import annotations
@@ -43,13 +49,21 @@ WGMMA_BWD_ENTRY = "nl_attn_bwd_wgmma"
 BWD_ENTRIES = (WGMMA_BWD_ENTRY, BWD_ENTRY)
 WGMMA_WIDTHS = (64, 128, 256, 512)
 LOG2E = math.log2(math.e)
+# the C entries' dtype argument; the 16-bit types take the tensor cores
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+# float16's dS scale (csrc/nonlocal_attn.cu, bwd::ds_scale): the power of two
+# that puts a bound on |dS| at 2^DS_TARGET, within 2^+-DS_MAX_SHIFT
+DS_TARGET, DS_MAX_SHIFT = 14, 60
 
 # kernel launches since the counts were last reset (a run resets them and
 # reads them afterwards to show that its non-local blocks took the kernel,
-# and which entry): the total, and the same launches by C entry, backward
-# included
+# and which entry): the total, the same launches by C entry, backward
+# included, and by dtype and C entry
 LAUNCHES = 0
 LAUNCHES_BY_ENTRY = {name: 0 for name in ENTRIES + BWD_ENTRIES}
+LAUNCHES_BY_DTYPE = {str(dt).removeprefix("torch."): dict(LAUNCHES_BY_ENTRY)
+                     for dt in DTYPE_CODES}
 
 # The wgmma kernel's tiling, mirrored from csrc/nonlocal_attn.cu (namespace
 # wg; tests hold the two equal): bytes a block may use, tile alignment, ring
@@ -83,27 +97,37 @@ def reset_launches() -> None:
     """Set the launch counts to 0."""
     global LAUNCHES
     LAUNCHES = 0
-    for name in LAUNCHES_BY_ENTRY:
-        LAUNCHES_BY_ENTRY[name] = 0
+    for counts in (LAUNCHES_BY_ENTRY, *LAUNCHES_BY_DTYPE.values()):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(entry: str, dtype: torch.dtype) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCHES_BY_ENTRY[entry] += 1
+    LAUNCHES_BY_DTYPE[str(dtype).removeprefix("torch.")][entry] += 1
 
 
 def kernel_entry(dtype: torch.dtype, d: int) -> str:
     """The C entry that takes (dtype, d): a pure function of the two,
     decided before any launch. Raises on what neither kernel takes."""
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"fused_attention: {dtype}; bfloat16 or float32 only")
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"fused_attention: {dtype}; float32, bfloat16 or "
+                        "float16 only")
     if d % 8 or not 8 <= d <= 512:
         raise ValueError(
             f"fused_attention takes 8 <= d <= 512 with d % 8 == 0; got d={d}")
-    if dtype == torch.bfloat16 and d in WGMMA_WIDTHS:
+    if dtype in HALF_DTYPES and d in WGMMA_WIDTHS:
         return "nl_attn_fwd_wgmma"
     return "nl_attn_fwd"
 
 
 def bwd_kernel_entry(dtype: torch.dtype, d: int) -> str:
     """The backward's C entry for (dtype, d), as :func:`kernel_entry` routes
-    the forward: bfloat16 at d in {64, 128, 256, 512} to the wgmma kernel,
-    everything else to ``nl_attn_bwd``. Raises on what neither takes."""
+    the forward: bfloat16 and float16 at d in {64, 128, 256, 512} to the
+    wgmma kernel, everything else to ``nl_attn_bwd``. Raises on what neither
+    takes."""
     if kernel_entry(dtype, d) == "nl_attn_fwd_wgmma":
         return WGMMA_BWD_ENTRY
     return BWD_ENTRY
@@ -116,7 +140,7 @@ def wgmma_block_k(d: int) -> int:
 
 def wgmma_smem_bytes(d: int, block_k: int, stages: int) -> int:
     """Shared memory of one block of the wgmma kernel, as its ``Cfg`` struct
-    computes it: alignment slack, the bf16 Q tile (128 query rows, 64 where
+    computes it: alignment slack, the 16-bit Q tile (128 query rows, 64 where
     two warpgroups split d) and ``stages`` slots of one K and one V tile."""
     q_rows = WGMMA_ROWS_PER_GROUP * (
         1 if d > WGMMA_SPLIT_ABOVE else WGMMA_GROUPS)
@@ -200,9 +224,9 @@ def _check_cuda_inputs(fn: str, named) -> None:
     for name, t in named:
         if t.device.type != "cuda":
             raise ValueError(f"{fn}: {name} is on {t.device}, not CUDA")
-        if t.dtype not in (torch.bfloat16, torch.float32):
+        if t.dtype not in DTYPE_CODES:
             raise TypeError(f"{fn}: {name} is {t.dtype}; "
-                            "bfloat16 or float32 only")
+                            "float32, bfloat16 or float16 only")
         if t.dim() != 3:
             raise ValueError(f"{fn}: {name} must be (B, S, d), "
                              f"got {tuple(t.shape)}")
@@ -221,8 +245,8 @@ def fused_attention(
 ):
     """The CUDA kernels: same contract as :func:`attention_reference`
     (``scale`` defaults to d**-0.5). Forward only. Raises on anything the
-    kernels do not take: a non-CUDA tensor, a dtype other than bfloat16 or
-    float32, mismatched shapes, a non-contiguous or misaligned input,
+    kernels do not take: a non-CUDA tensor, a dtype other than float32,
+    bfloat16 or float16, mismatched shapes, a non-contiguous or misaligned input,
     d % 8 != 0 or d > 512, or an input that requires grad while grad is
     enabled.
 
@@ -235,7 +259,6 @@ def fused_attention(
     ``with_lse``: return ``(out, lse)``, lse the rows' log-sum-exp in the
     log2 domain, (B, Sq) float32, written by the same launch (None for
     dot_product); the backward reads it."""
-    global LAUNCHES
     if entry is not None and entry not in ENTRIES:
         raise ValueError(f"entry must be one of {ENTRIES}, got {entry!r}")
     if kind not in KINDS:
@@ -261,8 +284,8 @@ def fused_attention(
         entry = routed
     elif entry == "nl_attn_fwd_wgmma" and routed != entry:
         raise ValueError(
-            f"nl_attn_fwd_wgmma takes bfloat16 with d in {WGMMA_WIDTHS}; "
-            f"got {q.dtype}, d={d}")
+            f"nl_attn_fwd_wgmma takes bfloat16 or float16 with d in "
+            f"{WGMMA_WIDTHS}; got {q.dtype}, d={d}")
     if scale is None:
         scale = float(d) ** -0.5
     out = torch.empty_like(q)
@@ -275,15 +298,11 @@ def fused_attention(
             b, sq, sk, d, KINDS.index(kind), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if entry == "nl_attn_fwd_wgmma":
-            err = lib.nl_attn_fwd_wgmma(*args, stream)
-        else:
-            err = lib.nl_attn_fwd(*args, int(q.dtype == torch.bfloat16),
-                                  stream)
+        fn = getattr(lib, entry)
+        err = fn(*args, DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    LAUNCHES += 1
-    LAUNCHES_BY_ENTRY[entry] += 1
+    _count(entry, q.dtype)
     return (out, lse) if with_lse else out
 
 
@@ -302,9 +321,9 @@ def padded_width(d: int) -> int:
 
 def bwd_tiles(dtype: torch.dtype, d: int) -> dict:
     """{'kv': (keys, queries), 'q': (queries, keys)} per tile of the two
-    backward passes."""
+    backward passes (bfloat16 and float16 alike)."""
     dp = padded_width(d)
-    if dtype == torch.bfloat16:
+    if dtype in HALF_DTYPES:
         if dp >= 512:
             return {"kv": (16, 32), "q": (32, 32)}
         if dp == 256:
@@ -319,7 +338,7 @@ def bwd_smem_bytes(dtype: torch.dtype, d: int, kv: bool) -> int:
     computes it: two own tiles, the float accumulators (two for dK / dV),
     two streamed tiles, S and dP in float, P and dS in the input type, and
     the rows' statistics, each region aligned to 128 bytes."""
-    size = 2 if dtype == torch.bfloat16 else 4
+    size = 2 if dtype in HALF_DTYPES else 4
     dp = padded_width(d)
     na, ns = bwd_tiles(dtype, d)["kv" if kv else "q"]
     qrows, kcols = (ns, na) if kv else (na, ns)
@@ -372,24 +391,23 @@ def fused_attention_backward(
     """The backward kernels: (dq, dk, dv) in q's dtype from the forward's
     inputs, its output ``o``, the output's gradient ``do`` and, for softmax,
     the rows' log-sum-exp ``lse`` that ``fused_attention(...,
-    with_lse=True)`` returned. Takes bfloat16 and float32 at every d the
-    forward takes; raises on anything else, as :func:`fused_attention`.
+    with_lse=True)`` returned. Takes float32, bfloat16 and float16 at every d
+    the forward takes; raises on anything else, as :func:`fused_attention`.
 
     :func:`bwd_kernel_entry` picks the C entry from dtype and d. ``entry``
     forces one of :data:`BWD_ENTRIES` instead and raises if that entry does
     not take the input: ``nl_attn_bwd`` takes everything listed above,
     ``nl_attn_bwd_wgmma`` only what ``bwd_kernel_entry`` routes to it. One
     call counts one launch, whatever the entry launches inside."""
-    global LAUNCHES
     if entry is not None and entry not in BWD_ENTRIES:
         raise ValueError(f"entry must be one of {BWD_ENTRIES}, got {entry!r}")
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if entry == WGMMA_BWD_ENTRY and not (
-            q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_WIDTHS):
+            q.dtype in HALF_DTYPES and q.shape[-1] in WGMMA_WIDTHS):
         raise ValueError(
-            f"{WGMMA_BWD_ENTRY} takes bfloat16 with d in {WGMMA_WIDTHS}; "
-            f"got {q.dtype}, d={q.shape[-1]}")
+            f"{WGMMA_BWD_ENTRY} takes bfloat16 or float16 with d in "
+            f"{WGMMA_WIDTHS}; got {q.dtype}, d={q.shape[-1]}")
     _check_cuda_inputs("fused_attention_backward", (
         ("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
     b, sq, d = q.shape
@@ -416,25 +434,47 @@ def fused_attention_backward(
         delta = torch.empty((b, sq), dtype=torch.float32, device=q.device)
     if scale is None:
         scale = float(d) ** -0.5
+    # float16's dS scale: the largest squared row norms of dO and V, as
+    # float32 bits, reduced by the kernels' first launch
+    bound = (torch.zeros(2, dtype=torch.int32, device=q.device)
+             if q.dtype == torch.float16 else None)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load_nonlocal_attn()
     ptr = lambda t: None if t is None else t.data_ptr()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), ptr(lse if kind == "softmax" else None), ptr(delta),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, d,
-            KINDS.index(kind), float(scale))
+            KINDS.index(kind), float(scale), ptr(bound),
+            DTYPE_CODES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if entry == WGMMA_BWD_ENTRY:
-            err = lib.nl_attn_bwd_wgmma(*args, stream)
-        else:
-            err = lib.nl_attn_bwd(*args, int(q.dtype == torch.bfloat16),
-                                  stream)
+        err = getattr(lib, entry)(*args, stream)
     if err:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    LAUNCHES += 1
-    LAUNCHES_BY_ENTRY[entry] += 1
+    _count(entry, q.dtype)
     return dq, dk, dv
+
+
+def ds_scale(do: torch.Tensor, v: torch.Tensor, kind: str, scale: float,
+             sk: int) -> float:
+    """The power of two by which the backward kernels scale dS before
+    rounding it to float16, and dK, dQ back after their sums (1.0 for the
+    other dtypes): ``bwd::ds_scale`` of csrc/nonlocal_attn.cu, from the
+    largest squared row norms of ``do`` and ``v`` in float32. It puts the
+    bound 2 scale |dO_i| |V_j| (softmax; |dO_i| |V_j| / Sk for dot_product)
+    on |dS| at 2^DS_TARGET: float16 then keeps dS down to 2^-38 of that
+    bound, where unscaled it would round everything under 2^-24 to zero."""
+    if do.dtype != torch.float16:
+        return 1.0
+    n_do = (do.float() ** 2).sum(-1).max()
+    n_v = (v.float() ** 2).sum(-1).max()
+    c = torch.tensor(2.0 * scale if kind == "softmax" else 1.0 / sk,
+                     dtype=torch.float32)
+    b2 = float(c * c * n_do.cpu() * n_v.cpu())
+    if not b2 > 0:
+        return 1.0
+    k = math.floor(DS_TARGET - 0.5 * math.log2(b2))
+    return 2.0 ** max(-DS_MAX_SHIFT, min(DS_MAX_SHIFT, k))
 
 
 def attention_backward_reference(
@@ -476,7 +516,8 @@ def attention_backward_tiled_reference(
     float64 and other widths take), P recomputed from the stored log-sum-exp
     as 2^(S scale log2 e - lse) with the rows and keys past the ends masked,
     D = rowsum(dO o O), P and dS rounded to q's dtype before the products
-    that take them, float32 accumulation. For the tests and the on-card
+    that take them (dS times :func:`ds_scale`, and dK, dQ divided by it
+    after their sums), float32 accumulation. For the tests and the on-card
     comparison."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
@@ -493,6 +534,7 @@ def attention_backward_tiled_reference(
     wd = _work_dtype(q)
     qf, kf, vf, dof = (t.to(wd) for t in (q, k, v, do))
     delta = (dof * o.to(wd)).sum(-1)
+    mult = ds_scale(do, v, kind, scale, sk)
     c2 = scale * LOG2E
     dq = torch.zeros((b, sq, d), dtype=wd, device=q.device)
     dk = torch.zeros((b, sk, d), dtype=wd, device=q.device)
@@ -508,11 +550,11 @@ def attention_backward_tiled_reference(
                 ds = scale * p * (dp - delta[:, qs, None])
             else:
                 p, ds = s / sk, dp / sk
-            p, ds = p.to(q.dtype).to(wd), ds.to(q.dtype).to(wd)
+            p, ds = p.to(q.dtype).to(wd), (ds * mult).to(q.dtype).to(wd)
             dv[:, ks] += torch.bmm(p.transpose(1, 2), dof[:, qs])
             dk[:, ks] += torch.bmm(ds.transpose(1, 2), qf[:, qs])
             dq[:, qs] += torch.bmm(ds, kf[:, ks])
-    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+    return tuple(t.to(q.dtype) for t in (dq / mult, dk / mult, dv))
 
 
 def _kernel_forward(q, k, v, kind, scale):
@@ -526,8 +568,8 @@ def _kernel_backward(q, k, v, o, do, lse, kind, scale):
 class NonLocalAttnFn(torch.autograd.Function):
     """Attention with the kernels on both sides: the routed forward entry
     (which also writes the rows' log-sum-exp) and the routed backward entry
-    (:func:`bwd_kernel_entry`: ``nl_attn_bwd_wgmma`` for bfloat16 at the
-    four widths). Saves q, k, v, the output and the statistics.
+    (:func:`bwd_kernel_entry`: ``nl_attn_bwd_wgmma`` for bfloat16 and
+    float16 at the four widths). Saves q, k, v, the output and the statistics.
 
     ``forward_impl(q, k, v, kind, scale) -> (out, lse)`` and
     ``backward_impl(q, k, v, out, dout, lse, kind, scale) -> (dq, dk, dv)``

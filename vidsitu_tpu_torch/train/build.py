@@ -26,9 +26,12 @@ def load_weights(model: torch.nn.Module, cfg, weights: str,
     weights in the flax layout when explicitly allowed (SRL evaluation:
     decoding random weights yields noise scored as if it were a model)."""
     from ..convert.from_flax import flax_to_state_dict, seeded_variables
+    from ..models.common import take_dtypes
 
     if weights:
         sd = torch.load(weights, map_location="cpu", weights_only=True)
+        # given weights keep their dtype, as the JAX package's variables do
+        take_dtypes(model, sd)
     elif allow_random:
         sd = flax_to_state_dict(seeded_variables(model, int(cfg.train.seed)))
     else:

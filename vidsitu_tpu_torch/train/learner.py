@@ -9,7 +9,10 @@ preemption to a separate checkpoint, overfit-batch. The train step is eager
 PyTorch:
 
   * Adam(0.9, 0.99, eps 1e-8) with the lr in the param group, so plateau
-    changes it in place (``optax.inject_hyperparams(adam)``);
+    changes it in place (``optax.inject_hyperparams(adam)``); over
+    parameters held in bfloat16 or float16 (``train.param_dtype``) its
+    moments are kept in that dtype and every step of the update rounds to
+    it, in optax's order (``train/adam.py``);
   * ``train.grad_accum`` = k is ``optax.MultiSteps``: the mean of k
     gradients, one update every k steps; a cycle in flight (its count and
     the gradients so far) goes into a checkpoint and resumes, as the
@@ -66,6 +69,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..models.common import take_dtypes
 from ..parallel.collectives import (
     broadcast_object,
     collective_device,
@@ -246,8 +250,9 @@ class Learner:
             self._accum_count = 0
 
     def _new_optimizer(self, lr: float):
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=lr, betas=(0.9, 0.99), eps=1e-8)
+        from .adam import make_adam
+
+        self.optimizer = make_adam(self.model.parameters(), lr)
         self._lr = lr
 
     def _restore_opt(self, pending: Dict):
@@ -822,7 +827,13 @@ class Learner:
         With ``load_opt`` the optimizer state and a ``grad_accum`` cycle in
         flight (its count and summed gradients, as ``optax.MultiSteps``'
         ``mini_step`` and ``acc_grads`` in the JAX package's checkpoint)
-        are restored, so the next update equals the straight run's."""
+        are restored, so the next update equals the straight run's.
+
+        Parameters take the checkpoint's dtype (``models.common.take_dtypes``),
+        as the JAX package's restore does (flax's ``from_bytes`` /
+        ``from_state_dict`` keep the saved arrays' dtype): a float32
+        checkpoint resumed with ``train.param_dtype=bfloat16`` goes on in
+        float32, its Adam state too."""
         loaded = self.ckpt_backend.load(resume_path)
         if loaded is None:
             self.logger.info("no checkpoint at %s; starting fresh",
@@ -830,6 +841,8 @@ class Learner:
             return
         meta = loaded["meta"]
         saved_world = int(meta.get("world_size", 1))
+        for model in dict.fromkeys((self.model, self.eval_model)):
+            take_dtypes(model, loaded["model"])
         target = self.model.state_dict()
         self.model.load_state_dict(
             {k: self._shard_like(k, v, target[k]) if k in target else v

@@ -21,6 +21,8 @@ from typing import List, Optional
 
 from torch import nn
 
+from ..models.common import take_dtypes
+
 
 def _load_caffe2_blobs(path):
     """The caffe2 blob dict if ``path`` is a caffe2-format pickle (a
@@ -70,6 +72,7 @@ def load_pretrained_variables(cfg, model: nn.Module, logger=None) -> nn.Module:
             tree = convert_sfbase_checkpoint(
                 load_torch_state_dict(path), cfg.vid_mdl.arch, strict=True)
         sd = flax_to_state_dict(tree)
+        take_dtypes(model, sd)  # loaded leaves keep their dtype, as in JAX
         missing, unexpected = model.load_state_dict(sd, strict=False)
         stray = [k for k in missing if k.startswith("backbone.")]
         if stray or unexpected:
@@ -122,6 +125,7 @@ def _load_subtree(model: nn.Module, name: str, params, path: str,
     from ..convert.from_flax import flax_to_state_dict
 
     sd = flax_to_state_dict({"params": {name: params}})
+    take_dtypes(model, sd)  # loaded leaves keep their dtype, as in JAX
     missing, unexpected = model.load_state_dict(sd, strict=False)
     stray = [k for k in missing if k.startswith(name + ".")] if whole else []
     if stray or unexpected:

@@ -849,8 +849,9 @@ def release_train_step(cfg, device, state_dict: Optional[dict] = None
     from .data import build_comm
     from .data.dataset import VsituDS
     from .data.loader import fold_frame_events, stack_collate
-    from .models.common import dropout_generator
+    from .models.common import dropout_generator, take_dtypes
     from .models.selector import build_model, init_model_variables
+    from .train.adam import make_adam
     from .train.learner import batch_to_device
 
     device = torch.device(device)
@@ -862,12 +863,14 @@ def release_train_step(cfg, device, state_dict: Optional[dict] = None
     model = build_model(cfg, comm)
     init_model_variables(model, 0)
     if state_dict is not None:
+        take_dtypes(model, state_dict)  # as the JAX module's variables
         model.load_state_dict(state_dict, strict=True)
     model.to(device).train()
     if device.type == "cuda" and cfg.task_type == "vb":
         model.to(memory_format=torch.channels_last_3d)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    optimizer = torch.optim.Adam(model.parameters(), lr=1e-4)
+    # optax.adam(1e-4) of the JAX module, in the parameters' dtype
+    optimizer = make_adam(model.parameters(), 1e-4, betas=(0.9, 0.999))
     gen = torch.Generator(device=device).manual_seed(0)
     cuda = device.type == "cuda"
     if cuda:
