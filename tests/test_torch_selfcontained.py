@@ -44,10 +44,12 @@ COPIED = {
 # (added plus removed) and a word the changed lines must hold: the port's
 # converter walks non-local modules by block index; prep's clip check takes
 # a malformed container as invalid (the original lets count_frames'
-# IndexError / KeyError / ValueError escape download_clip); three comments
-# are reworded (one or two lines each, no code)
+# IndexError / KeyError / ValueError escape download_clip); four comments
+# are reworded (one or two lines each, no code), one of them to name the
+# port's profiler
 ALLOWED_DIFFS = {
     "./prep.py": (7, "malformed"),
+    "configs/vsitu_cfg.yml": (2, "torch.profiler"),
     "convert/slowfast_torch.py": (16, "nonlocal"),
     "data/comm.py": (2, "Shared task metadata"),
     "data/frames.py": (4, "writers"),
