@@ -278,6 +278,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 
 Phases 1-32 run as before, at the same depth and repeats. A child that
 fails, a launch past DP_TIMEOUT_S or a disagreement fails the smoke.
+``[stem folds]`` lines give ``Conv3d.padded_calls`` (the stem convs run as
+``folded_conv3d``: CUDA, 16-bit) of the phases before them in this
+process; each torchrun rank reports its own as ``stem_folds``.
 
 Prints the GPU's name and power limit first, a JSON line of kernel results
 before the last line, and as the last line
@@ -359,6 +362,15 @@ DP_METRIC_ATOL = 0.05
 
 
 T0 = time.perf_counter()
+
+
+def stem_folds(phases):
+    """Log and reset ``Conv3d.padded_calls``, counted since the last
+    call, over ``phases``."""
+    from vidsitu_tpu_torch.models import video_backbone as VB
+
+    log(f"[stem folds] phases {phases}: {VB.Conv3d.padded_calls}")
+    VB.Conv3d.padded_calls = 0
 
 
 def log(*a):
@@ -2143,6 +2155,7 @@ def dist_child(task, spec_path) -> int:
     import os
 
     sys.path.insert(0, str(REPO))
+    from vidsitu_tpu_torch.models import video_backbone as VB
     from vidsitu_tpu_torch.ops import _build
     from vidsitu_tpu_torch.ops import attention as A
     from vidsitu_tpu_torch.ops import beam_gather as B
@@ -2161,6 +2174,7 @@ def dist_child(task, spec_path) -> int:
     kind = "fit" if task.startswith("elastic") else task
     A.reset_launches()
     B.LAUNCHES = 0
+    VB.Conv3d.padded_calls = 0
     t0 = time.perf_counter()
     # phase 28 repeats a run bitwise
     with (deterministic_algorithms() if spec.get("deterministic")
@@ -2178,7 +2192,8 @@ def dist_child(task, spec_path) -> int:
     out = {"task": task, "rank": rank, "world": world,
            "local_rank": int(os.environ["LOCAL_RANK"]), "device": str(dev),
            "backend": torch.distributed.get_backend(), "wall_s": wall,
-           "launches": launches, "checks": checks, **res}
+           "launches": launches, "stem_folds": VB.Conv3d.padded_calls,
+           "checks": checks, **res}
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     assert not leaked, f"jax was imported: {leaked[:5]}"
@@ -2899,7 +2914,8 @@ def phase_fsdp_update(paths, root):
         f"(limits {ELASTIC_DRIFT}); ms an update (median of {FSDP_TIMED}, "
         f"in turns) {r['ms']} (all {r['ms_all']}); peak GiB {r['peak_gib']}; "
         f"a sharded s3 convolution sees {r['layout']}; fsdp launches in one "
-        f"update {r['fsdp_launches']}; kernel vs plain {r['checks']}; "
+        f"update {r['fsdp_launches']}; stem folds in the rank "
+        f"{r['stem_folds']}; kernel vs plain {r['checks']}; "
         f"torchrun wall {wall:.1f} s")
     assert r["loss_rel_err"] <= DP_BF16_RTOL, r["loss"]
     assert all(r["drift"][p] <= lim for p, lim in ELASTIC_DRIFT.items())
@@ -3866,9 +3882,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     cfg = smoke_cfg(paths, root, "i3d_r50_nl_8x8")
     state_dict = seeded_state_dict(cfg)
+    stem_folds("1-2")
     launches, by_entry = phase_main_path(cfg, state_dict, root / "feats")
+    stem_folds(3)
     forward_ms = phase_paths_agree(cfg, state_dict, dev)
+    stem_folds(4)
     sf_model, sf_inp = phase_default_cfg(paths, root, dev)
+    stem_folds(5)
     # the SRL models read the feature width from the directory's name
     feats_dir = root / "i3d_nl_smoke_feats"
     feats_dir.symlink_to(root / "feats", target_is_directory=True)
@@ -3910,10 +3930,14 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     train_launches, train_wall, p17 = phase_vb_train_main(paths, root)
     vb_root, vb_paths = root, paths
+    stem_folds("6-17")
     step_res = phase_train_step(dev)
+    stem_folds(18)
     bench_train = phase_bench_train(dev)
+    stem_folds(19)
     # the dtype surface: each run's counts set to 0 just before it
     dtypes = phase_dtypes(main_paths, main_root, state_dict, step_res, dev)
+    stem_folds(35)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lang_") as tmp:
         root = Path(tmp)

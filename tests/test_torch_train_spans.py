@@ -2,8 +2,10 @@
 step of ``Learner.train_epoch`` runs in ``vidsitu.input`` (the next batch
 fetched, folded and sent), ``vidsitu.forward`` and ``vidsitu.backward``, and
 each update in torch's ``Optimizer.step#Adam.step``, in that order; the
-spans change nothing a step computes; the trace that ``tpu.profile`` writes
-holds the spans of the steps it covers.
+stem runs in ``vidsitu.stem`` inside the forward; the spans change nothing
+a step computes; the trace that ``tpu.profile`` writes holds the spans of
+the steps it covers; the benchmark's ``stem_device_ms.train`` reader counts
+the kernels launched inside the stem spans of a made-up trace.
 
 A tiny I3D-NL (depth 26, 32 px, 4 frames, non-local blocks at s3 / s4
 block 0) on a synthetic split, float32, two videos a step, on the CPU.
@@ -15,6 +17,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from port_bench import trace as T
+from port_bench.harness import read_metrics
 from vidsitu_tpu_torch.data.synth import make_synth_dataset
 from vidsitu_tpu_torch.train.build import build_learner
 from vidsitu_tpu_torch.train.learner import SmoothenDict
@@ -23,6 +27,7 @@ from vidsitu_tpu_torch.utils.config import get_cfg_with_overrides
 torch.set_num_threads(1)
 
 INPUT, FORWARD, BACKWARD = "vidsitu.input", "vidsitu.forward", "vidsitu.backward"
+STEM = "vidsitu.stem"
 ADAM = "Optimizer.step#Adam.step"
 NAMES = (INPUT, FORWARD, BACKWARD, ADAM)
 TINY = {
@@ -119,3 +124,63 @@ def test_the_operators_profile_holds_the_spans_of_its_steps(split):
     counts = {n: sum(1 for e in events if e.get("ph") == "X" and e["name"] == n
                      and e.get("cat") == "user_annotation") for n in NAMES}
     assert counts == {n: 2 for n in NAMES}
+
+
+def test_each_forward_runs_the_stem_in_one_stem_span(split):
+    """One ``vidsitu.stem`` span a step (the I3D-NL's one stem), inside
+    that step's ``vidsitu.forward``; the other spans keep their counts."""
+    steps = 3
+    learner = _learner(split, steps, "spans_stem")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        learner.train_epoch(SmoothenDict(learner.loss_keys))
+    spans = {n: sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.name == n)
+             for n in NAMES + (STEM,)}
+    assert len(spans[STEM]) == len(spans[FORWARD]) == len(spans[BACKWARD]) == steps
+    assert len(spans[ADAM]) == steps
+    assert len(spans[INPUT]) == steps + 1
+    for (sa, se), (fa, fe) in zip(spans[STEM], spans[FORWARD]):
+        assert fa <= sa < se <= fe
+
+
+def _x(name, cat, ts_us, dur_us, **args):
+    return {"ph": "X", "name": name, "cat": cat, "ts": ts_us, "dur": dur_us,
+            "tid": 1, "args": args}
+
+
+def _kernel(name, a, b, corr, launched):
+    return [_x(name, "kernel", a, b - a, correlation=corr),
+            _x("cudaLaunchKernel", "cuda_runtime", launched, 1, correlation=corr)]
+
+
+def _stem_trace(with_stem=True):
+    """Two steps between step-end copies at 100, 200 and 300 us; each
+    forward (110-150, 210-250) holds a stem span (112-130, 212-230).
+    Counted: the kernel launched in each stem (131-141, 231-236). Not
+    counted: the kernels launched in the forward after the stem (141-149,
+    236-246) or in the backward (150-160), and one with no launch record
+    (160-165)."""
+    ev = [_x("Memcpy DtoH (Device -> Pinned)", "gpu_memcpy", a, 5)
+          for a in (95, 195, 295)]
+    ev += [_x(FORWARD, "user_annotation", 110, 40), _x(BACKWARD, "user_annotation", 150, 20),
+           _x(FORWARD, "user_annotation", 210, 40), _x(BACKWARD, "user_annotation", 250, 20)]
+    if with_stem:
+        ev += [_x(STEM, "user_annotation", 112, 18), _x(STEM, "user_annotation", 212, 18)]
+    ev += _kernel("cutlass_tensorop_bf16_fprop", 131, 141, 1, launched=115)
+    ev += _kernel("batch_norm_collect_statistics", 141, 149, 2, launched=135)
+    ev += _kernel("conv_wgrad", 150, 160, 3, launched=152)
+    ev += [_x("fill", "kernel", 160, 5, correlation=4)]
+    ev += _kernel("cutlass_tensorop_bf16_fprop", 231, 236, 5, launched=220)
+    ev += _kernel("batch_norm_collect_statistics", 236, 246, 6, launched=232)
+    return T.Trace(ev)
+
+
+def test_the_stem_reader_counts_the_kernels_launched_in_the_stem_spans():
+    counts = {"flops_per_step": 1.0, "attn_least_s_per_step": 1e-6}
+    m = read_metrics("train", _stem_trace(), counts)
+    assert m["stem_device_ms.train"] == (pytest.approx((10 + 5) * 1e-3 / 2), "ms/step")
+    assert m["forward_device_ms.train"][0] == pytest.approx((18 + 15) * 1e-3 / 2)
+    # a program without the stem span (the parent's): silent, the rest read
+    m = read_metrics("train", _stem_trace(with_stem=False), counts)
+    assert "stem_device_ms.train" not in m
+    assert m["forward_device_ms.train"][0] == pytest.approx((18 + 15) * 1e-3 / 2)

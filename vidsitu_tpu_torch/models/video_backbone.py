@@ -30,6 +30,9 @@ SlowFast-package backbones the reference wraps (mdl_sf_base.py:20-62).
     a rename and a transpose (convert/from_flax.py).
   * The JAX package's packed stem conv and packed stem epilogue fill TPU
     lanes; here the stem is a plain Conv3d on the same canonical weight.
+    On CUDA in bf16 / f16 it runs as a 2D conv with its temporal taps
+    folded into zero-padded channels (:func:`folded_conv3d`): cuDNN runs a
+    3-channel 3D conv in float32, off the tensor cores.
   * Under ``torch.use_deterministic_algorithms`` a CUDA training step
     repeats bit for bit: the stem's max pool, whose CUDA backward PyTorch
     names nondeterministic, then runs as two one-axis pools
@@ -49,6 +52,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import nonlocal_attention
@@ -143,31 +147,114 @@ class VideoCfg:
         )
 
 
+# cuDNN runs a 16-bit channels-last 3D conv with 3 input channels (the
+# stems) on a float32 NCHW kernel, off the tensor cores, and zero-padding the
+# channels to 4 or 8 keeps it there (an H100, cuDNN 9.2); its 2D convs take
+# such inputs on the tensor cores. So the stems run as 2D convs over the
+# output frames: the temporal taps side by side as channels, zero-padded to a
+# multiple of FOLD_CHANNELS (4: the 1x7x7 stem's 2D conv is as fast at 3 and
+# 4 channels and slower at 8; the 5x7x7 stems' 15 go to 16). Each added
+# product is zero times zero.
+# TC_CHANNELS: the channel multiple cuDNN's 16-bit 3D convs take on the
+# tensor cores; every conv but the stems' has it.
+TC_CHANNELS = 8
+FOLD_CHANNELS = 4
+
+
+def folds_conv(device_type: str, dtype: torch.dtype, channels: int) -> bool:
+    """Whether :class:`Conv3d` runs a conv of ``channels`` input channels in
+    ``dtype`` on a ``device_type`` device as :func:`folded_conv3d`."""
+    return (device_type == "cuda" and dtype in (torch.bfloat16, torch.float16)
+            and channels % TC_CHANNELS != 0)
+
+
+def folded_channels(in_channels: int, kt: int) -> int:
+    """Channels of a folded frame: ``kt`` taps of ``in_channels``, rounded
+    up to a multiple of ``FOLD_CHANNELS``."""
+    return -(-in_channels * kt // FOLD_CHANNELS) * FOLD_CHANNELS
+
+
+def fold_weight(w: torch.Tensor, channels: int) -> torch.Tensor:
+    """(Cout, C, kt, kh, kw) -> (Cout, ``channels``, kh, kw), channels-last:
+    input channel ``i * C + c`` is tap ``i`` of channel ``c``, zeros past
+    ``kt * C``."""
+    co, c, kt, kh, kw = w.shape
+    w2 = w.permute(0, 3, 4, 2, 1).reshape(co, kh, kw, kt * c)
+    return F.pad(w2, (0, channels - kt * c)).permute(0, 3, 1, 2)
+
+
+def fold_frames(x: torch.Tensor, kt: int, stride: int, padding: int,
+                dilation: int, channels: int) -> torch.Tensor:
+    """(N, C, T, H, W) -> (N * To, ``channels``, H, W), channels-last: output
+    frame ``t`` holds input frames ``t * stride - padding + i * dilation``
+    (``i`` < ``kt``; zeros outside T) side by side in :func:`fold_weight`'s
+    channel order, zeros past ``kt * C``."""
+    n, c, _, h, w = x.shape
+    v = x.permute(0, 2, 3, 4, 1)
+    if padding:
+        v = F.pad(v, (0, 0, 0, 0, 0, 0, padding, padding))
+    taps = v.unfold(1, (kt - 1) * dilation + 1, stride)[..., ::dilation]
+    to = taps.shape[1]
+    out = v.new_zeros((n, to, h, w, channels))
+    out[..., :kt * c].unflatten(-1, (kt, c)).copy_(taps.transpose(-1, -2))
+    return out.view(n * to, h, w, channels).permute(0, 3, 1, 2)
+
+
+def folded_conv3d(x: torch.Tensor, weight: torch.Tensor, bias, kt: int,
+                  stride, padding, dilation) -> torch.Tensor:
+    """``F.conv3d(x, w, bias, stride, padding, dilation)`` (one group) as a
+    2D conv of :func:`fold_frames` and ``weight = fold_weight(w, ...)``;
+    the output is a channels-last (N, Cout, To, Ho, Wo) view."""
+    n = x.shape[0]
+    frames = fold_frames(x, kt, stride[0], padding[0], dilation[0],
+                         weight.shape[1])
+    y = F.conv2d(frames, weight, bias, stride[1:], padding[1:], dilation[1:])
+    _, co, ho, wo = y.shape
+    return y.permute(0, 2, 3, 1).reshape(n, -1, ho, wo, co).permute(0, 4, 1, 2, 3)
+
+
 class Conv3d(nn.Conv3d):
     """``nn.Conv3d`` whose weight and bias are cast to the input's dtype:
     parameters keep their own dtype, products run in the compute dtype
     (flax ``param_dtype`` / ``dtype``). Under autograd the cast is part of
     the graph at each call; without it (inference) the cast copy is kept
-    until the parameter changes, so that a forward costs no casts."""
+    until the parameter changes, so that a forward costs no casts.
+
+    Where :func:`folds_conv` holds the conv runs as
+    :func:`folded_conv3d` (the folded weight cast and kept as the cast copy
+    is); ``padded_calls`` counts those calls, whose folded frames are the
+    input with its channels zero-padded."""
 
     _cast_key = None
+    padded_calls = 0
 
-    def _cast(self, dtype: torch.dtype):
+    def _cast(self, dtype: torch.dtype, channels=None):
+        """Weight and bias in ``dtype``, the weight folded to ``channels``
+        (:func:`fold_weight`) where given."""
         w, b = self.weight, self.bias
-        if w.dtype == dtype:
+        if w.dtype == dtype and channels is None:
             return w, b
+        fold = (lambda t: t) if channels is None else (
+            lambda t: fold_weight(t, channels))
         if torch.is_grad_enabled():
-            return w.to(dtype), None if b is None else b.to(dtype)
-        key = (dtype, w.device, w._version, w.data_ptr(),
+            return fold(w.to(dtype)), None if b is None else b.to(dtype)
+        key = (dtype, channels, w.device, w._version, w.data_ptr(),
                None if b is None else (b._version, b.data_ptr()),
                torch.is_inference_mode_enabled())
         if self._cast_key != key:
-            self._cast_copy = (w.detach().to(dtype),
+            self._cast_copy = (fold(w.detach().to(dtype)),
                                None if b is None else b.detach().to(dtype))
             self._cast_key = key
         return self._cast_copy
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.groups == 1 and self.padding_mode == "zeros"
+                and folds_conv(x.device.type, x.dtype, x.shape[1])):
+            Conv3d.padded_calls += 1
+            kt = self.kernel_size[0]
+            weight, bias = self._cast(x.dtype, folded_channels(x.shape[1], kt))
+            return folded_conv3d(x, weight, bias, kt, self.stride,
+                                 self.padding, self.dilation)
         weight, bias = self._cast(x.dtype)
         return self._conv_forward(x, weight, bias)
 
@@ -445,9 +532,10 @@ class Stem(nn.Module):
         self.remat = -1 in cfg.remat_stages
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.remat and self.training and torch.is_grad_enabled():
-            return run_remat(self._forward, x)
-        return self._forward(x)
+        with record_function("vidsitu.stem"):
+            if self.remat and self.training and torch.is_grad_enabled():
+                return run_remat(self._forward, x)
+            return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)

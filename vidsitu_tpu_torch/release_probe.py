@@ -17,7 +17,16 @@ the same batch:
 R50 update (16 videos = 80 clips, bf16) with the stem's max pool in one
 pass and as two one-axis pools, in turns, with each one's peak memory.
 
-Both need a GPU; ``--out=DIR`` also writes the lines to ``DIR/release_probe.jsonl``.
+``python -m vidsitu_tpu_torch.release_probe stem_fold`` first runs a
+training step of both cells' models, folded and plain, counts
+``Conv3d.padded_calls`` and names the op and shapes that launch each float32
+conv kernel and each kernel on the frames (the stems, their folds); then it
+times each stem conv of the benchmark's cells alone (80 clips, 224 px, bf16,
+channels-last), as cuDNN takes its 3 channels and folded
+(``video_backbone.folded_conv3d``): forward, fold pass and weight gradient
+in turns, with the kernels each runs.
+
+All three need a GPU; ``--out=DIR`` also writes the lines to ``DIR/release_probe.jsonl``.
 """
 
 from __future__ import annotations
@@ -249,15 +258,169 @@ def probe_stem(turns_reps: int = 5) -> Dict:
             "peak_gib_one_pass": peaks[0], "peak_gib_two_pools": peaks[1]}
 
 
+# (name, Cout, temporal kernel, frames) of the cells' stems
+STEMS = (("i3d_r50_nl_8x8", 64, 5, 8), ("slowfast_slow", 64, 1, 8),
+         ("slowfast_fast", 8, 5, 32))
+# kernel names of float32 convolutions, off the tensor cores
+F32_CONV = ("f32f32", "sgemm", "convolveNd")
+
+
+def _kernels(fn) -> List:
+    """[name, device ms] of the kernels one call of ``fn`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .timing import kernel_rows
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [[e.key[:140], e.device_time_total / 1e3] for e in kernel_rows(prof)]
+
+
+def _launching_ops(events: List[Dict], match) -> List:
+    """[kernel, op, input dims, ms] summed over a Chrome trace's kernels
+    whose name ``match`` accepts: the op is the innermost ``aten::`` op on
+    the launching thread that holds the kernel's launch record."""
+    launches, ops = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        args = e.get("args") or {}
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launches[args["correlation"]] = (e["tid"], e["ts"])
+        elif e.get("cat") == "cpu_op" and e["name"].startswith("aten::"):
+            ops.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), e["name"],
+                 json.dumps(args.get("Input Dims"))))
+    by: Dict = {}
+    for e in events:
+        if e.get("cat") != "kernel" or not match(e["name"]):
+            continue
+        tid, t = launches.get((e.get("args") or {}).get("correlation"), (None, 0))
+        held = [o for o in ops.get(tid, ()) if o[0] <= t <= o[1]]
+        op = min(held, key=lambda o: o[1] - o[0]) if held else (0, 0, "?", "?")
+        key = (e["name"][:140], op[2], op[3])
+        by[key] = by.get(key, 0.0) + e.get("dur", 0) / 1e3
+    return [[*k, v] for k, v in sorted(by.items(), key=lambda kv: -kv[1])]
+
+
+def probe_stem_fold(clips: int = 80, size: int = 224, videos: int = 16,
+                    reps: int = 10) -> Dict:
+    """In a training step of each model, folded and plain: the padded calls
+    and the float32 conv and frame kernels with the ops that launch them;
+    then each stem conv alone, plain and folded. The steps come first:
+    after the stems alone, the profiler has left out the plain stems'
+    forward kernels from a step's trace on an H100."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from .bench import make_vb_train
+    from .models import video_backbone as VB
+    from .timing import medians_in_turns
+
+    def wgrad(gy, x, w, stride, padding):
+        dil = (1,) * len(stride)
+        return torch.ops.aten.convolution_backward(
+            gy, x, w, None, stride, padding, dil, False, (0,) * len(stride), 1,
+            (False, True, False))[1]
+
+    dev = torch.device("cuda")
+    out = {"probe": "stem_fold", "clips": clips, "size": size, "stems": {}}
+    folds = VB.folds_conv
+
+    def on_frames(kernel, dims):
+        """A float32 conv kernel, or one launched by an op on the frames."""
+        if any(p in kernel for p in F32_CONV):
+            return True
+        try:
+            return any(isinstance(d, list) and size in d for d in json.loads(dims))
+        except (TypeError, ValueError):
+            return False
+
+    for preset in ("i3d_r50_nl_8x8", "slow_fast_nl_r50_8x8"):
+        model, opt, batch, _ = make_vb_train(preset, videos, dev)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            model(batch)["loss"].backward()
+            opt.step()
+
+        for label, fold in (("folded", folds), ("plain", lambda *a: False)):
+            VB.folds_conv = fold
+            try:
+                step()
+                VB.Conv3d.padded_calls = 0
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
+                    step()
+                    torch.cuda.synchronize()
+            finally:
+                VB.folds_conv = folds
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            out.setdefault("steps", {}).setdefault(preset, {})[label] = {
+                "padded_calls": VB.Conv3d.padded_calls,
+                "kernels": [r for r in _launching_ops(events, lambda k: True)
+                            if on_frames(r[0], r[2])]}
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, cout, kt, frames in STEMS:
+        x = torch.randn((clips, frames, size, size, 3), generator=gen,
+                        device=dev).to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+        w = (0.1 * torch.randn((cout, 3, kt, 7, 7), generator=gen, device=dev)).to(
+            torch.bfloat16).to(memory_format=torch.channels_last_3d)
+        st, pd = (1, 2, 2), (kt // 2, 3, 3)
+        y = F.conv3d(x, w, None, st, pd)
+        gy = torch.randn(y.shape, generator=gen, device=dev).to(
+            torch.bfloat16).to(memory_format=torch.channels_last_3d)
+        n, _, t, ho, wo = y.shape
+        gy2 = gy.permute(0, 2, 3, 4, 1).reshape(n * t, ho, wo, cout).permute(0, 3, 1, 2)
+        ch = VB.folded_channels(3, kt)
+        frames2d, w2d = VB.fold_frames(x, kt, 1, kt // 2, 1, ch), VB.fold_weight(w, ch)
+        v = {"plain": (lambda: F.conv3d(x, w, None, st, pd),
+                       lambda: wgrad(gy, x, w, st, pd), None),
+             "folded": (lambda: F.conv2d(frames2d, w2d, None, st[1:], pd[1:]),
+                        lambda: wgrad(gy2, frames2d, w2d, st[1:], pd[1:]),
+                        lambda: VB.fold_frames(x, kt, 1, kt // 2, 1, ch))}
+        ref = y.float()
+        rows = {}
+        for key, (fwd, bwd, _) in v.items():
+            yk = fwd().float()
+            if yk.dim() == 4:
+                yk = yk.permute(0, 2, 3, 1).reshape(n, t, ho, wo, cout).permute(0, 4, 1, 2, 3)
+            rows[key] = {"max_rel_diff_to_plain": float((yk - ref).abs().max() / ref.abs().max()),
+                         "kernels_fwd": _kernels(fwd),
+                         "kernels_wgrad": _kernels(bwd)}
+        fns = [(k, i, f) for k, fs in v.items() for i, f in enumerate(fs) if f]
+        for _ in range(3):
+            ms = medians_in_turns([f for *_, f in fns], reps)
+            for (k, i, _), m in zip(fns, ms):
+                rows[k].setdefault(("fwd_ms", "wgrad_ms", "fold_ms")[i], []).append(m)
+        flops = 2 * y.numel() * 3 * kt * 49
+        for r in rows.values():
+            r["fwd_share_of_989"] = flops / (min(r["fwd_ms"]) * 1e-3) / 989e12
+        out["stems"][name] = {"cout": cout, "kt": kt, "frames": frames,
+                              "folded_channels": ch, "useful_gflop": flops / 1e9, **rows}
+        del x, w, y, gy, gy2, frames2d, w2d, v, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=("fit", "stem"))
+    ap.add_argument("probe", choices=("fit", "stem", "stem_fold"))
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("release_probe needs a GPU: no CUDA device visible")
-    res = probe_fit(args.seed) if args.probe == "fit" else probe_stem()
+    res = {"fit": lambda: probe_fit(args.seed), "stem": probe_stem,
+           "stem_fold": probe_stem_fold}[args.probe]()
     res["gpu"] = torch.cuda.get_device_name(0)
     line = json.dumps(res)
     print(line, flush=True)
